@@ -1,0 +1,226 @@
+"""GNN backbones (counterpart of kpgnn_tpu/models/backbones.py).
+
+This slice ports ``GNNPlus`` (the KP-GIN+ framework, the flagship's
+backbone) with its shared machinery: the peripheral embeddings, the
+virtual node, jumping knowledge and the masked batch norm.  ``GNN`` and
+``GNNPrime`` are not ported yet (ROADMAP.md, Queue 1).  Every update is
+written out of place so autograd sees each intermediate.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..graph.batch import GraphBatch
+from ..nn.basic import MLP, TorchLinear
+from ..nn.encoders import FeatureConcatEncoder
+from ..nn.inits import normal_
+from ..nn.norms import MaskedBatchNorm
+from ..ops.lstm import BiLSTM
+from ..ops.segment import segment_sum
+
+
+def _dropout(x: torch.Tensor, rate: float, train: bool,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout drawing its mask from an explicit generator (on
+    x's device).  Its bits differ from JAX's, so parity runs use
+    rate 0."""
+    if not train or rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=torch.float32) < (1.0 - rate)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def _make_norm(norm_type: str, features: int) -> nn.Module:
+    if norm_type == "Batch":
+        return MaskedBatchNorm(features)
+    if norm_type in ("Layer", "Instance", "GraphSize", "Pair"):
+        raise NotImplementedError(
+            f"norm {norm_type!r} is not ported yet (ROADMAP.md, Queue 1)")
+    raise ValueError("Not supported norm method")
+
+
+def _apply_norm(norm: nn.Module, x: torch.Tensor, batch: GraphBatch,
+                train: bool) -> torch.Tensor:
+    return norm(x, mask=batch.node_mask, use_running_average=not train)
+
+
+class _PeripheralEmbed(nn.Module):
+    """Peripheral edge + configuration embeddings, computed once per
+    forward and fed to every layer; ``gate`` is sigmoid (GNN / GNNPrime)
+    or tanh (GNNPlus).  The encoders keep row 0 live (the reference's
+    falsy ``padding=0``)."""
+
+    def __init__(self, width: int, num_hop1_edge: int, max_edge_count: int,
+                 max_hop_num: int, max_distance_count: int,
+                 wo_peripheral_edge: bool, wo_peripheral_configuration: bool,
+                 gate: str = "sigmoid"):
+        super().__init__()
+        self.width = width
+        self.gate = torch.sigmoid if gate == "sigmoid" else torch.tanh
+        self.use_edge = not wo_peripheral_edge
+        self.use_config = not wo_peripheral_configuration
+        if self.use_edge:
+            self.peripheral_edge_embedding = FeatureConcatEncoder(
+                [num_hop1_edge + 2, max_edge_count + 1], width,
+                padding=False)
+            self.pew = nn.Parameter(torch.empty(1))
+        if self.use_config:
+            self.peripheral_configuration_embedding = FeatureConcatEncoder(
+                [max_distance_count + 1] * (max_hop_num + 1), width,
+                padding=False)
+            self.pcw = nn.Parameter(torch.empty(1))
+
+    def init_params(self, generator: torch.Generator) -> None:
+        if self.use_edge:
+            normal_(self.pew, generator)
+        if self.use_config:
+            normal_(self.pcw, generator)
+
+    def forward(self, batch: GraphBatch, K: int) -> torch.Tensor:
+        out = torch.zeros((batch.n_pad, K, self.width),
+                          device=batch.node_mask.device)
+        if self.use_edge and batch.peripheral_edge_attr is not None:
+            emb = self.peripheral_edge_embedding(
+                batch.peripheral_edge_attr, sum_axis=-1)     # (N, K, W)
+            out = out + self.gate(self.pew) * emb
+        if self.use_config and batch.peripheral_config_attr is not None:
+            out = out + self.gate(self.pcw) * \
+                self.peripheral_configuration_embedding(
+                    batch.peripheral_config_attr)
+        return out
+
+
+class _VirtualNode(nn.Module):
+    """Virtual-node state (zero-initialized) and its per-layer
+    Linear-BN-ReLU x2 update, BN masked over real graphs."""
+
+    def __init__(self, hidden_size: int, num_layer: int):
+        super().__init__()
+        self.virtualnode_embedding = nn.Parameter(
+            torch.zeros(1, hidden_size))
+        for i in range(num_layer - 1):
+            self.add_module(f"mlp_virtualnode_{i}", MLP(
+                hidden_size, [hidden_size, hidden_size], use_batchnorm=True))
+
+    def init_params(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.virtualnode_embedding.zero_()
+
+    def initial(self, num_graphs: int) -> torch.Tensor:
+        return self.virtualnode_embedding.expand(num_graphs, -1)
+
+    def update(self, layer: int, h_prev, vn, batch: GraphBatch, train: bool,
+               residual: bool, drop_prob: float, generator) -> torch.Tensor:
+        pooled = segment_sum(
+            h_prev * batch.node_mask[:, None].to(h_prev.dtype),
+            batch.node_graph_ids, batch.g_pad).float()
+        out = getattr(self, f"mlp_virtualnode_{layer}")(
+            pooled + vn, mask=batch.graph_mask, train=train)
+        out = _dropout(out, drop_prob, train, generator)
+        return vn + out if residual else out
+
+
+def _jumping_knowledge(JK: str, h_list: List[torch.Tensor],
+                       attention_lstm: Optional[nn.Module]) -> torch.Tensor:
+    if JK == "concat":
+        return torch.cat(h_list, dim=1)
+    if JK == "last":
+        return h_list[-1]
+    if JK == "max":
+        return torch.stack(h_list, dim=0).max(dim=0).values
+    if JK == "sum":
+        return torch.stack(h_list, dim=0).sum(dim=0)
+    if JK == "attention":
+        hs = torch.stack(h_list, dim=1)                     # (N, L+1, H)
+        score = attention_lstm(hs)
+        att = torch.softmax(score.sum(-1), dim=1)[..., None]
+        return (hs * att).sum(dim=1)
+    raise ValueError(f"unknown JK {JK!r}")
+
+
+class GNNPlus(nn.Module):
+    """KP-GIN+ framework: layer l's hop axis is the window of the last
+    k = min(l + 1, K) layer outputs."""
+
+    def __init__(self, num_layer: int, hidden_size: int, K: int,
+                 layer_fn: Callable[[int], nn.Module],
+                 init_encoder: nn.Module, num_hop1_edge: int = 1,
+                 max_edge_count: int = 0, max_hop_num: int = 0,
+                 max_distance_count: int = 0, JK: str = "last",
+                 norm_type: str = "Batch", virtual_node: bool = True,
+                 residual: bool = False, use_rd: bool = False,
+                 wo_peripheral_edge: bool = False,
+                 wo_peripheral_configuration: bool = False,
+                 drop_prob: float = 0.1):
+        super().__init__()
+        if num_layer < K:
+            raise ValueError("GNNPlus needs num_layer >= K")
+        H, L = hidden_size, num_layer
+        self.H, self.K, self.L = H, K, L
+        self.JK, self.residual, self.use_rd = JK, residual, use_rd
+        self.drop_prob = drop_prob
+        self.init_encoder = init_encoder
+        if use_rd:
+            self.rd_projection = TorchLinear(1, H)
+        self.peripheral = _PeripheralEmbed(
+            H, num_hop1_edge, max_edge_count, max_hop_num,
+            max_distance_count, wo_peripheral_edge,
+            wo_peripheral_configuration, gate="tanh")
+        self.virtualnode = _VirtualNode(H, L) if virtual_node else None
+        for l in range(L):                                  # noqa: E741
+            self.add_module(f"gnn{l}", layer_fn(l))
+            self.add_module(f"norm{l}", _make_norm(norm_type, H))
+        if JK == "attention":
+            self.attention_lstm = BiLSTM(H, L)
+        self.output_proj = TorchLinear(H * (L + 1) if JK == "concat" else H,
+                                       H)
+
+    def forward(self, batch: GraphBatch, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        K, L = self.K, self.L
+
+        def dropout(v):
+            return _dropout(v, self.drop_prob, train, generator)
+
+        x = self.init_encoder(batch)
+        if x.dim() == 3 and x.shape[1] == 1:
+            x = x[:, 0]
+        if self.use_rd and batch.rd is not None:
+            x = x + self.rd_projection(batch.rd)
+        peripheral_hm = self.peripheral(batch, K).to(x.dtype).transpose(0, 1)
+
+        vn_mod = self.virtualnode
+        vn = vn_mod.initial(batch.g_pad) if vn_mod is not None else None
+        gid = batch.node_graph_ids
+        h_list = [x]
+        last_h = x
+        for l in range(L):                                  # noqa: E741
+            if vn_mod is not None:
+                h_list[l] = h_list[l] + vn[gid].to(h_list[l].dtype)
+            k = min(l + 1, K)
+            window = torch.stack([h_list[j] for j in range(l, l - k, -1)],
+                                 dim=0)                     # (k, N, H)
+            h = getattr(self, f"gnn{l}")(
+                window, batch.adj.slice_hops(k),
+                batch.pe_attr[:, :k - 1] if batch.pe_attr is not None
+                else None,
+                peripheral_hm[:k], node_mask=batch.node_mask, train=train)
+            h = _apply_norm(getattr(self, f"norm{l}"), h, batch, train)
+            if l != L - 1:
+                h = dropout(h)
+            if self.residual:
+                h = h + last_h
+                last_h = h
+            h_list.append(h)
+            if vn_mod is not None and l < L - 1:
+                vn = vn_mod.update(l, h_list[l], vn, batch, train,
+                                   self.residual, self.drop_prob, generator)
+        rep = _jumping_knowledge(self.JK, h_list,
+                                 getattr(self, "attention_lstm", None))
+        rep = self.output_proj(rep)
+        return dropout(F.relu(rep))

@@ -1,0 +1,136 @@
+"""Batch iterator: Graph list -> stream of padded GraphBatches
+(counterpart of kpgnn_tpu/train/loader.py, "pallas" mode only).
+
+Pad sizes are chosen once per loader (worst case over the dataset), as
+in the JAX loader, so one list of graphs gives the same node layout in
+both packages.  Shuffled iteration collates on a background thread;
+ordered (eval) iteration collates once and replays.  Batches are CPU
+tensors; the trainer moves them to its device.
+"""
+from __future__ import annotations
+
+import math
+import queue
+import threading
+from typing import Iterator, Optional, Sequence
+
+import numpy as np
+
+from ..graph.batch import BucketSpec, GraphBatch, collate_pallas
+from ..graph.data import Graph
+
+
+def background_iter(factory, maxsize: int = 2):
+    """Run ``factory()`` (an iterator) on a daemon thread and yield its
+    items through a bounded queue.  Abandoning the generator cancels the
+    producer: its puts are timed and observe a cancel event."""
+    q: "queue.Queue" = queue.Queue(maxsize=maxsize)
+    SENTINEL = object()
+    cancel = threading.Event()
+
+    def put(item) -> bool:
+        while not cancel.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def producer():
+        try:
+            for item in factory():
+                if not put(item):
+                    return
+            put(SENTINEL)
+        except BaseException as e:      # surfaced in the consumer
+            put(e)
+
+    t = threading.Thread(target=producer, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is SENTINEL:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+        t.join()
+    finally:
+        cancel.set()
+
+
+class GraphLoader:
+    """mode="pallas": batches carry the fused-hop kernel plan; v1/vk must
+    match the model's num_hop1_edge + 2 / max_pe_num + 2."""
+
+    def __init__(
+        self,
+        graphs: Sequence[Graph],
+        batch_size: int,
+        shuffle: bool = False,
+        seed: int = 0,
+        n_pad: Optional[int] = None,
+        e_pad: Optional[int] = None,
+        spec: Optional[BucketSpec] = None,
+        y_is_node_level: bool = False,
+        mode: str = "pallas",
+        v1: Optional[int] = None,
+        vk: Optional[int] = None,
+    ):
+        if mode != "pallas":
+            raise NotImplementedError(
+                f"loader mode {mode!r} is not ported yet (ROADMAP.md, "
+                "Queue 1); use mode='pallas'")
+        if v1 is None or vk is None:
+            raise ValueError("pallas mode needs v1/vk vocab sizes")
+        self.graphs = list(graphs)
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.rng = np.random.default_rng(seed)
+        self.y_is_node_level = y_is_node_level
+        self.mode = mode
+        self.v1, self.vk = v1, vk
+        spec = spec or BucketSpec()
+        if n_pad is None or e_pad is None:
+            # worst case: batch_size largest graphs end up together
+            ns = sorted((g.num_nodes for g in self.graphs), reverse=True)
+            es = sorted((g.num_edges for g in self.graphs), reverse=True)
+            dn, de = spec.pad_sizes(sum(ns[:batch_size]),
+                                    sum(es[:batch_size]))
+            n_pad = n_pad if n_pad is not None else dn
+            e_pad = e_pad if e_pad is not None else de
+        self.n_pad, self.e_pad = n_pad, e_pad
+        self.g_pad = batch_size + 1
+
+    def example(self) -> GraphBatch:
+        return self._collate(self.graphs[: self.batch_size])
+
+    def __len__(self) -> int:
+        return math.ceil(len(self.graphs) / self.batch_size)
+
+    def _collate(self, batch_graphs) -> GraphBatch:
+        return collate_pallas(
+            batch_graphs, v1=self.v1, vk=self.vk, n_pad=self.n_pad,
+            e_pad=self.e_pad, g_pad=self.g_pad,
+            y_is_node_level=self.y_is_node_level)
+
+    def __iter__(self) -> Iterator[GraphBatch]:
+        bs = self.batch_size
+        if not self.shuffle:
+            if not hasattr(self, "_cache"):
+                self._cache = [self._collate(self.graphs[i * bs:(i + 1) * bs])
+                               for i in range(len(self))]
+            yield from self._cache
+            return
+        order = np.arange(len(self.graphs))
+        self.rng.shuffle(order)
+        n_batches = len(self)
+
+        def batches():
+            for i in range(n_batches):
+                idx = order[i * bs:(i + 1) * bs]
+                yield self._collate([self.graphs[j] for j in idx])
+
+        yield from background_iter(batches, maxsize=2)
