@@ -7,30 +7,45 @@ Phases, each of which fails the run loudly:
   1. build  — compile every CUDA kernel of the main path from this
      checkout's sources (csrc/, nvcc for sm_90a); print the card, its power
      limit and the build seconds;
-  2. check  — hold each kernel against its plain PyTorch version on the
-     card, forward and autograd backward: flagship plans (64 ZINC-shaped
-     molecules, K=8, D=104, every hop prefix k=1..8) and edge cases
-     (empty rows with null senders, a 10k-edge hub row, a rectangular
-     table, D=13, bf16 input);
+  2. check  — hold each kernel variant against its plain PyTorch version on
+     the card, forward and autograd backward.  The gather: flagship plans
+     (64 ZINC-shaped molecules, K=8, D=104, every hop prefix k=1..8) and
+     edge cases (empty rows with null senders, a 10k-edge hub row, a
+     rectangular table at D=64, D=13, bf16 input, an x whose data_ptr is
+     not 16-byte aligned).  The fused gather + edge-embedding term at every
+     hop prefix k=1..8, with autograd grads of x and both tables, and at
+     k=8 in bf16, misaligned and D=13.  Together these take the 16-byte and
+     the scalar variant in each direction.  Then three repeated launches of
+     every variant on one input must be bit-identical;
   3. train  — write a ZINC-format fixture (tools/make_zinc_fixture.py) and
      run ``kpgnn_tpu_torch.scripts.train_zinc.main`` at the flagship's
      full width (KPGINPlus K=8 L=8 H=104, attention combine, JK concat,
      residual, --backend pallas) for one epoch; require finite losses,
-     exactly 2*L kernel launches per train step plus L per eval step, and
-     a first-step loss equal to the same step on the CPU;
-  4. time   — kernel forward/backward, the plain version and one
-     ``torch.sparse.mm`` call on the flagship k=8 plan (CUDA events, after
-     warm-up, rotating distinct inputs), each beside the least time the
-     card could take; and the flagship train step, with its device time
-     by kernel from torch.profiler.
+     exactly 2*L kernel launches per train step (L fused forward, L
+     gather backward) plus L per eval step, and a first-step loss equal to
+     the same step on the CPU;
+  4. time   — on the flagship k=8 plan (CUDA events, after warm-up,
+     rotating distinct inputs), each beside the least time the card could
+     take: every kernel variant, its plain version and, for the gather,
+     one ``torch.sparse.mm`` call; the gather backward; the unfused
+     composition the fused forward replaces (kernel + k ``counts @ table``
+     GEMMs + stack + add); the kernel's tile (rows per warp) at four sizes,
+     and its grid in row order instead of live runs first; and the
+     flagship train step, with its device time by kernel from
+     torch.profiler.
 The last lines are the card's name and power limit, a ``kernels`` JSON
-line, and ``{"ok": true, "device": {...}}``.
+line (one entry per kernel variant), and ``{"ok": true, "device": {...}}``.
 
-Tolerances: f32 kernel vs plain version atol 1e-5, except the hub row,
+Tolerances: f32 gather vs plain version atol 1e-5, except the hub row,
 whose 10k-term sums may differ in summation order by up to 1e-6 of the
-row's sum of |x| (plus 1e-5); bf16 input vs the plain version on the same
-bf16 values, both summed in f32, rtol 1e-3; first train-step loss GPU vs
-CPU rtol 1e-4.
+row's sum of |x| (plus 1e-5); the fused forward likewise 1e-5 plus 1e-6
+of its sum of |terms| (the kernel adds x and table rows edge by edge,
+the plain version per edge pair); the table gradients, sums over the n
+rows of the counts (a matmul against an atomic scatter in varying
+order), 1e-5 plus 2*sqrt(n)*2**-24 of their sum of |terms|, the
+probabilistic bound of f32 summation error; bf16 input vs the plain
+version on the same bf16 values, both summed in f32, rtol 1e-3; first
+train-step loss GPU vs CPU rtol 1e-4.
 """
 import importlib.util
 import json
@@ -42,6 +57,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 K, L, H, BATCH = 8, 8, 104, 64
@@ -49,7 +65,7 @@ N_TRAIN, N_VAL, N_TEST = 1024, 128, 128
 SEED = 234
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM data sheet, f32 outside the MMA
-KERNEL = dict(name="gather_segment_sum", route="cuda",
+KERNEL = dict(route="cuda",
               source="kpgnn_tpu_torch/csrc/gather_segment_sum.cu",
               replaces="kpgnn_tpu/ops/pallas_spmm.py:159")
 
@@ -103,21 +119,51 @@ def train_argv(dataset_dir, save_dir, device):
             "--num_epochs", "1", "--runs", "1", "--seed", str(SEED)]
 
 
-def kernel_bound_ms(csr, D, x_bytes):
+def kernel_bound_ms(csr, D, x_bytes, fused=False):
     """Least time for one launch on this CSR's data: the rows of x that
-    some edge gathers read once, indptr and senders read once, the f32
-    output written once, over the HBM rate; the adds (one per gathered
-    element) over the f32 rate.  Returns (ms, by)."""
+    some edge gathers read once, indptr and senders read once (and, fused,
+    the codes and the table rows some edge reads), the f32 output written
+    once, over the HBM rate; the adds (one per gathered element, two
+    fused) over the f32 rate.  Returns (ms, by)."""
     import torch
     n_rows, n_edges = csr.n_rows, csr.senders.shape[0]
     s = csr.senders
     n_read = int(torch.unique(s[(s >= 0) & (s < csr.n_cols)]).numel())
     nbytes = n_read * D * x_bytes + (n_rows + 1) * 4 + n_edges * 4 \
         + n_rows * D * 4
+    adds = n_edges * D
+    if fused:
+        rows = torch.repeat_interleave(
+            torch.arange(n_rows, device=s.device),
+            (csr.indptr[1:] - csr.indptr[:-1]).long(), output_size=n_edges)
+        c = csr.codes.long()
+        hop_k = (rows >= csr.rows_per_hop).long()
+        n_tab = int(torch.unique((c * 2 + hop_k)[c > 0]).numel())
+        nbytes += n_edges * 4 + n_tab * D * 4
+        adds *= 2
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = n_edges * D / F32_FLOPS
+    t_ops = adds / F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def misalign(t):
+    """A contiguous copy of t whose data_ptr is one element past a 16-byte
+    boundary (the kernel's scalar variant)."""
+    import torch
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def launched(spmm, fn):
+    """fn()'s result and the kernel variants it launched, with counts."""
+    before = Counter(spmm.gather_segment_sum.variant_launches)
+    out = fn()
+    after = Counter(spmm.gather_segment_sum.variant_launches)
+    after.subtract(before)
+    return out, {k: v for k, v in after.items() if v}
 
 
 def time_ms(torch, fn, inputs, iters=200, warmup=20):
@@ -213,29 +259,49 @@ def main():
         fb = tl.example()
         plan = fb.adj.to(dev)
         union_edges = sum(g.num_edges for g in tl.graphs[:BATCH])
+        deg = plan.fwd.indptr[1:] - plan.fwd.indptr[:-1]
+        codes = torch.unique(plan.fwd.codes).tolist()
         log(f"[plan] flagship batch: {int(fb.node_mask.sum())} nodes, "
             f"n_pad {fb.n_pad}, {union_edges} union edges, K*n_pad = "
-            f"{plan.fwd.n_rows} rows, {plan.fwd.senders.shape[0]} live "
-            "hop edges")
+            f"{plan.fwd.n_rows} rows, {int((deg > 0).sum())} of them with "
+            f"an edge, at most {int(deg.max())} edges a row, "
+            f"{plan.fwd.senders.shape[0]} live hop edges with {len(codes)} "
+            f"attr codes {codes}; rows up to the last live one per hop "
+            f"{plan.fwd.hop_live}")
 
-        # ---- 2. kernel against its plain version ----
+        # ---- 2. kernels against their plain versions ----
         gen = torch.Generator(device=dev).manual_seed(0)
-        errs = {}
+        errs = Counter()            # variant -> max |err| over its checks
+        f32_tol = dict(rtol=0.0, atol=1e-5)
 
-        def compare(name, fwd, bwd, D, dtype=torch.float32, hub=False):
+        def note(variants, err):
+            for v in variants:
+                errs[v] = max(errs[v], err)
+
+        def compare(name, fwd, bwd, D, dtype=torch.float32, hub=False,
+                    mis=False):
             x = torch.randn(fwd.n_cols, D, device=dev, generator=gen
                             ).to(dtype)
             w = torch.randn(fwd.n_rows, D, device=dev, generator=gen)
+            if mis:
+                w = misalign(w)
             # kernel: forward over fwd, autograd backward over bwd
-            xk = x.clone().requires_grad_(True)
-            out = spmm._GatherSegment.apply(xk, fwd, bwd)
-            (out * w).sum().backward()
+            xk = (misalign(x) if mis else x.clone()).requires_grad_(True)
+            out, v_f = launched(
+                spmm, lambda: spmm._GatherSegment.apply(xk, fwd, bwd))
+            _, v_b = launched(spmm, lambda: (out * w).sum().backward())
             out = out.detach()
-            grad_k = spmm.gather_segment_sum(w, bwd.indptr, bwd.senders,
-                                             bwd.n_rows)
+            grad_k, v_g = launched(spmm, lambda: bwd.gather(w))
             check(xk.grad.dtype == dtype
                   and torch.equal(xk.grad, grad_k.to(dtype)),
                   f"{name}: autograd backward is not the kernel over bwd")
+            vec = D * x.element_size() % 16 == 0 and not mis
+            expect_f = spmm.variant_name(dtype, vec, False)
+            expect_g = spmm.variant_name(torch.float32,
+                                         D % 4 == 0 and not mis, False)
+            check(v_f == {expect_f: 1} and v_g == {expect_g: 1},
+                  f"{name}: launched {v_f} forward, {v_g} backward; "
+                  f"expected {expect_f}, {expect_g}")
             # plain version: forward on the same values, f32 gradient
             ref = spmm.gather_segment_sum_reference(
                 x, fwd.indptr, fwd.senders, fwd.n_rows)
@@ -245,7 +311,6 @@ def main():
             torch.cuda.synchronize()
             check(out.dtype == torch.float32 and out.shape == ref.shape,
                   f"{name}: output {out.dtype} {tuple(out.shape)}")
-            f32_tol = dict(rtol=0.0, atol=1e-5)
             tol_f = (dict(rtol=1e-3, atol=1e-5) if dtype == torch.bfloat16
                      else f32_tol)
             tol_b = f32_tol         # the gradient is f32 either way
@@ -262,16 +327,23 @@ def main():
                                        msg=lambda m: f"{name} fwd: {m}")
             torch.testing.assert_close(grad_k, xr.grad, **tol_b,
                                        msg=lambda m: f"{name} bwd: {m}")
-            errs[name] = (ef, eb)
+            if not hub:
+                note(v_f, ef)
+                note(set(v_b) | set(v_g), eb)
             log(f"[check] {name}: rows {fwd.n_rows} cols {fwd.n_cols} "
                 f"edges {fwd.senders.shape[0]} D {D} {str(dtype)[6:]}: "
-                f"max |err| fwd {ef:.3e} bwd {eb:.3e}")
+                f"max |err| fwd {ef:.3e} ({expect_f}) bwd {eb:.3e} "
+                f"({expect_g})")
 
         for k in range(1, K + 1):
             sub = plan.slice_hops(k)
             compare(f"flagship k={k}", sub.fwd, sub.bwd, H)
         compare(f"flagship k={K} bf16", plan.fwd, plan.bwd, H,
                 dtype=torch.bfloat16)
+        compare(f"flagship k={K} misaligned", plan.fwd, plan.bwd, H,
+                mis=True)
+        compare(f"flagship k={K} bf16 misaligned", plan.fwd, plan.bwd, H,
+                dtype=torch.bfloat16, mis=True)
 
         def csr_pair(recv, send, n_rows, n_cols):
             """fwd CSR over all edges, bwd over the non-null ones."""
@@ -301,36 +373,146 @@ def main():
         compare("D=13 bf16", *csr_pair(rng.integers(0, 2048, 10000),
                                        rng.integers(0, 2048, 10000), 2048,
                                        2048), 13, dtype=torch.bfloat16)
-        # reported: the f32 flagship plans, the shapes the main path runs
-        max_err = max(max(v) for k_, v in errs.items()
-                      if k_.startswith("flagship") and "bf16" not in k_)
+
+        V1, VK = plan.counts1.shape[1], plan.countsk_hm.shape[2]
+
+        def compare_fused(name, sub, D, dtype=torch.float32, mis=False):
+            """The fused forward (gather + edge-embedding term) and its
+            autograd grads of x and both tables against the plain version's
+            autograd."""
+            k, f, n = sub.K, sub.fwd, sub.counts1.shape[0]
+            x = torch.randn(f.n_cols, D, device=dev, generator=gen).to(dtype)
+            t1 = torch.randn(V1, D, device=dev, generator=gen)
+            tk = torch.randn(VK, D, device=dev, generator=gen)
+            w = torch.randn(f.n_rows, D, device=dev, generator=gen)
+            xk = (misalign(x) if mis else x.clone()).requires_grad_(True)
+            t1k, tkk = (t.clone().requires_grad_(True) for t in (t1, tk))
+            out, v_f = launched(
+                spmm, lambda: spmm._FusedKHop.apply(xk, t1k, tkk, sub))
+            _, v_b = launched(spmm, lambda: (out * w).sum().backward())
+            out = out.detach()
+            grad_k = sub.bwd.gather(w)
+            check(torch.equal(xk.grad, grad_k.to(dtype)),
+                  f"{name}: dx is not the gather kernel over bwd")
+            expect_f = spmm.variant_name(
+                dtype, D * x.element_size() % 16 == 0 and not mis, True)
+            expect_b = spmm.variant_name(torch.float32, D % 4 == 0, False)
+            check(v_f == {expect_f: 1} and v_b == {expect_b: 1},
+                  f"{name}: launched {v_f} forward, {v_b} backward; "
+                  f"expected {expect_f}, {expect_b}")
+            xr = x.float().clone().requires_grad_(True)
+            t1r, tkr = (t.clone().requires_grad_(True) for t in (t1, tk))
+            ref = spmm.gather_segment_sum_reference(
+                xr, f.indptr, f.senders, f.n_rows, f.codes, t1r,
+                None if k == 1 else tkr, n)
+            (ref * w).sum().backward()
+            ref = ref.detach()
+            # summation-order bounds (module docstring): a relative factor
+            # of the sum of |terms|, + 1e-5
+            absf = spmm.gather_segment_sum_reference(
+                x.float().abs(), f.indptr, f.senders, f.n_rows, f.codes,
+                t1.abs(), None if k == 1 else tk.abs(), n)
+
+            def rows_bound(n_rows):
+                return 2 * math.sqrt(n_rows) * 2.0 ** -24
+            grads = [("fwd", out, ref, absf, 1e-6),
+                     ("dx", grad_k, xr.grad, None, 0.0),
+                     ("d table1", t1k.grad, t1r.grad,
+                      sub.counts1.t() @ w[:n].abs(), rows_bound(n))]
+            if k > 1:
+                ck = sub.countsk_hm.reshape(-1, VK)
+                grads.append(("d tablek", tkk.grad, tkr.grad,
+                              ck.t() @ w[n:].abs(), rows_bound(ck.shape[0])))
+                check(bool((tkk.grad[0] == 0).all()),
+                      f"{name}: d tablek row 0 is not 0")
+            else:
+                check(tkk.grad is None, f"{name}: k=1 gave a tablek grad")
+            check(bool((t1k.grad[0] == 0).all()),
+                  f"{name}: d table1 row 0 is not 0")
+            torch.cuda.synchronize()
+            msg = []
+            for what, got, want, absum, rel in grads:
+                tol = 1e-5 + (0.0 if absum is None
+                              else rel * float(absum.max()))
+                err = float((got - want).abs().max())
+                torch.testing.assert_close(
+                    got, want, rtol=0.0, atol=tol,
+                    msg=lambda m: f"{name} {what}: {m}")
+                msg.append(f"{what} {err:.3e} (tol {tol:.1e})")
+                note(v_f if what == "fwd" else
+                     (v_b if what == "dx" else ()), err)
+            log(f"[check] fused {name}: D {D} {str(dtype)[6:]}: max |err| "
+                + ", ".join(msg) + f"; {expect_f} + {expect_b}")
+
+        for k in range(1, K + 1):
+            compare_fused(f"flagship k={k}", plan.slice_hops(k), H)
+        compare_fused(f"flagship k={K} bf16", plan, H, dtype=torch.bfloat16)
+        compare_fused(f"flagship k={K} misaligned", plan, H, mis=True)
+        compare_fused(f"flagship k={K} bf16 misaligned", plan, H,
+                      dtype=torch.bfloat16, mis=True)
+        compare_fused(f"flagship k={K} D=13", plan, 13)
+
+        # determinism: three launches of every variant on one input
+        fwd, bwd = plan.fwd, plan.bwd
+        t1 = torch.randn(V1, H, device=dev, generator=gen)
+        tk = torch.randn(VK, H, device=dev, generator=gen)
+        tabs = dict(codes=fwd.codes, table1=t1, tablek=tk)
+        x32 = torch.randn(fwd.n_cols, H, device=dev, generator=gen)
+        x16 = x32.to(torch.bfloat16)
+        variants = {}               # variant -> (timed inputs, tables)
+        for dtype, xv in ((torch.float32, x32), (torch.bfloat16, x16)):
+            for mis in (False, True):
+                for fused in (False, True):
+                    inputs = [xv if j == 0 else
+                              torch.randn_like(x32, dtype=torch.float32
+                                               ).to(dtype) for j in range(8)]
+                    if mis:
+                        inputs = [misalign(v) for v in inputs]
+                    variants[spmm.variant_name(dtype, not mis, fused)] = (
+                        inputs, tabs if fused else {})
+        for vname, (inputs, kw) in variants.items():
+            outs, v = launched(spmm, lambda: [fwd.gather(inputs[0], **kw)
+                                              for _ in range(3)])
+            check(v == {vname: 3}, f"determinism: {vname} launched {v}")
+            check(all(torch.equal(outs[0], o) for o in outs[1:]),
+                  f"{vname}: three launches on one input differ")
+        outs = [bwd.gather(x32) for _ in range(3)]
+        check(all(torch.equal(outs[0], o) for o in outs[1:]),
+              "gather over bwd: three launches on one input differ")
+        log(f"[check] determinism: 3 launches bit-identical for each of "
+            f"{len(variants)} variants and the backward gather")
 
         # ---- 3. the main path: train_zinc at full width ----
         rows = []
-        spmm.gather_segment_sum.launches = 0
+        spmm.reset_launch_counts()
         t0 = time.perf_counter()
         mae = train_zinc.main(
             train_argv(work, os.path.join(work, "save"), "cuda"),
             epoch_callback=lambda e, m, row: rows.append(row))
         torch.cuda.synchronize()
         launches = spmm.gather_segment_sum.launches
+        path_launches = dict(spmm.gather_segment_sum.variant_launches)
         train_s = time.perf_counter() - t0
         n_train = math.ceil(N_TRAIN / BATCH)
         n_eval = math.ceil(N_VAL / BATCH) + math.ceil(N_TEST / BATCH)
         expect = n_train * 2 * L + n_eval * L
+        fused_v = spmm.variant_name(torch.float32, True, True)
+        gather_v = spmm.variant_name(torch.float32, True, False)
+        expect_v = {fused_v: (n_train + n_eval) * L, gather_v: n_train * L}
         check(len(rows) == 1, f"expected one epoch, got {len(rows)}")
         row = rows[0]
         losses = np.asarray(row["step_losses"])
         log(f"[train] 1 epoch in {train_s:.1f} s: {len(losses)} steps, "
             f"train_loss {row['train_loss']:.5f} val_loss "
             f"{row['val_loss']:.5f} test MAE {mae:.5f}; kernel launches "
-            f"{launches} (expected {expect})")
+            f"{launches} (expected {expect}): {path_launches}")
         check(len(losses) == n_train, f"{len(losses)} train steps")
         check(np.isfinite(losses).all() and math.isfinite(mae)
               and math.isfinite(row["val_loss"]), "non-finite loss")
-        check(launches == expect,
-              f"kernel launches {launches} != {expect} "
-              f"(2*L per train step + L per eval step)")
+        check(launches == expect and path_launches == expect_v,
+              f"kernel launches {launches} {path_launches} != {expect} "
+              f"{expect_v} (per train step L fused forward + L gather "
+              f"backward, per eval step L fused forward)")
 
         # the same first step on the CPU, through the plain version
         it = iter(tl)
@@ -349,37 +531,99 @@ def main():
             f"{cpu_loss:.7f} (rel diff {rel:.2e})")
         check(rel <= 1e-4, f"first-step loss differs by {rel:.2e} > 1e-4")
 
-        # ---- 4. times ----
-        fwd, bwd = plan.fwd, plan.bwd
-        xs = [torch.randn(fwd.n_cols, H, device=dev) for _ in range(8)]
-        gs = [torch.randn(bwd.n_cols, H, device=dev) for _ in range(8)]
-        ms_f = time_ms(torch, lambda x: spmm.gather_segment_sum(
-            x, fwd.indptr, fwd.senders, fwd.n_rows), xs)
-        ms_b = time_ms(torch, lambda g: spmm.gather_segment_sum(
-            g, bwd.indptr, bwd.senders, bwd.n_rows), gs)
-        plain_f = time_ms(torch, lambda x: spmm.gather_segment_sum_reference(
-            x, fwd.indptr, fwd.senders, fwd.n_rows), xs)
-        plain_b = time_ms(torch, lambda g: spmm.gather_segment_sum_reference(
-            g, bwd.indptr, bwd.senders, bwd.n_rows), gs)
-
-        def sparse(c):
+        # ---- 4. times, on the flagship k=8 plan ----
+        def sparse(c, dtype):
             n_e = c.senders.shape[0]
             return torch.sparse_csr_tensor(
                 c.indptr.long(), c.senders.long(),
-                torch.ones(n_e, device=dev), size=(c.n_rows, c.n_cols),
-                check_invariants=False)
-        a_f, a_b = sparse(fwd), sparse(bwd)
-        lib_f = time_ms(torch, lambda x: torch.sparse.mm(a_f, x), xs)
-        lib_b = time_ms(torch, lambda g: torch.sparse.mm(a_b, g), gs)
-        n_e = fwd.senders.shape[0]
-        bound_f, by_f = kernel_bound_ms(fwd, H, 4)
+                torch.ones(n_e, device=dev, dtype=dtype),
+                size=(c.n_rows, c.n_cols), check_invariants=False)
+
+        def library_ms(c, inputs):
+            """One torch.sparse.mm call on the same inputs; None where
+            PyTorch has none for this type."""
+            a = sparse(c, inputs[0].dtype)
+            try:
+                torch.sparse.mm(a, inputs[0])
+            except RuntimeError as err:
+                log(f"[time] torch.sparse.mm {inputs[0].dtype}: not "
+                    f"timed ({str(err).splitlines()[0][:100]})")
+                return None
+            return time_ms(torch, lambda x: torch.sparse.mm(a, x), inputs)
+
+        n = plan.counts1.shape[0]
+        times = {}
+        for vname, (inputs, kw) in variants.items():
+            fused = bool(kw)
+            ms, v = launched(spmm, lambda: time_ms(
+                torch, lambda x: fwd.gather(x, **kw), inputs))
+            check(set(v) == {vname}, f"timing {vname} launched {v}")
+            kw_ref = dict(kw, rows_per_hop=n) if fused else {}
+            plain = time_ms(torch, lambda x: spmm.gather_segment_sum_reference(
+                x, fwd.indptr, fwd.senders, fwd.n_rows, **kw_ref), inputs)
+            lib = None if fused else library_ms(fwd, inputs)
+            bound, by = kernel_bound_ms(fwd, H, inputs[0].element_size(),
+                                        fused)
+            times[vname] = (ms, plain, lib, bound, by)
+            log(f"[time] {vname} fwd {ms:.4f} ms (plain {plain:.4f}, "
+                f"torch.sparse.mm "
+                f"{'none' if lib is None else format(lib, '.4f')}, bound "
+                f"{bound:.4f} by {by})")
+        gs = [torch.randn(bwd.n_cols, H, device=dev) for _ in range(8)]
+        ms_b = time_ms(torch, lambda g: bwd.gather(g), gs)
+        plain_b = time_ms(torch, lambda g: spmm.gather_segment_sum_reference(
+            g, bwd.indptr, bwd.senders, bwd.n_rows), gs)
+        lib_b = library_ms(bwd, gs)
         bound_b, by_b = kernel_bound_ms(bwd, H, 4)
-        log(f"[time] kernel fwd {ms_f:.4f} ms (plain {plain_f:.4f}, "
-            f"torch.sparse.mm {lib_f:.4f}, bound {bound_f:.4f} by {by_f}); "
-            f"bwd {ms_b:.4f} ms (plain {plain_b:.4f}, torch.sparse.mm "
-            f"{lib_b:.4f}, bound {bound_b:.4f} by {by_b}); flagship k=8 "
-            f"plan {fwd.n_rows} rows x D {H}, {n_e} edges; fwd "
+        n_e = fwd.senders.shape[0]
+        ms_f = times[gather_v][0]
+        log(f"[time] {gather_v} bwd {ms_b:.4f} ms (plain {plain_b:.4f}, "
+            f"torch.sparse.mm {lib_b:.4f}, bound {bound_b:.4f} by {by_b}); "
+            f"flagship k=8 plan {fwd.n_rows} rows x D {H}, {n_e} edges; fwd "
             f"{n_e / ms_f / 1e3:.1f}M hop-edges/s")
+
+        # the unfused composition the fused forward replaces: the gather,
+        # then k counts @ table GEMMs on zero-row-0 tables, stack, add
+        countsk_nm = plan.countsk.contiguous()         # (N, K-1, Vk)
+
+        def unfused(x):
+            out = fwd.gather(x).reshape(K, n, H)
+            t1z = torch.cat([torch.zeros_like(t1[:1]), t1[1:]])
+            tkz = torch.cat([torch.zeros_like(tk[:1]), tk[1:]])
+            parts = [plan.counts1 @ t1z] + [countsk_nm[:, k - 1] @ tkz
+                                            for k in range(1, K)]
+            return out + torch.stack(parts, dim=0)
+        xs = variants[gather_v][0]
+        got, want = unfused(xs[0]).reshape(-1, H), fwd.gather(xs[0], **tabs)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4,
+                                   msg=lambda m: f"unfused vs fused: {m}")
+        ms_unf = time_ms(torch, unfused, xs)
+        ms_fused = times[fused_v][0]
+        log(f"[time] fused forward {ms_fused:.4f} ms vs the unfused "
+            f"composition it replaces {ms_unf:.4f} ms (gather + {K} GEMMs "
+            f"+ stack + add; bound {times[fused_v][3]:.4f}); gather alone "
+            f"{ms_f:.4f} ms")
+
+        # the kernel's tile: rows per warp
+        sweep, keep = [], spmm.ROWS_PER_WARP
+        try:
+            for rpw in (1, 2, 4, 8):
+                spmm.ROWS_PER_WARP = rpw
+                fused_ms = time_ms(torch, lambda x: fwd.gather(x, **tabs), xs)
+                sweep.append(
+                    f"{rpw}: fwd {time_ms(torch, fwd.gather, xs):.4f} bwd "
+                    f"{time_ms(torch, bwd.gather, gs):.4f} fused "
+                    f"{fused_ms:.4f}")
+        finally:
+            spmm.ROWS_PER_WARP = keep
+        # without hop_live the runs go to the grid in row order, so the
+        # padding's zero runs are not overlapped with the live rows' chains
+        in_order = [time_ms(torch, lambda x: spmm.gather_segment_sum(
+            x, c.indptr, c.senders, c.n_rows), v) for c, v in ((fwd, xs),
+                                                              (bwd, gs))]
+        log(f"[tile] rows per warp (used: {spmm.ROWS_PER_WARP}) -> ms; "
+            + "; ".join(sweep) + f"; runs in row order instead of live "
+            f"first: fwd {in_order[0]:.4f} bwd {in_order[1]:.4f}")
 
         # flagship train step on one fixed batch
         model = init_parameters(make_model(mcfg), SEED).to(dev)
@@ -401,11 +645,14 @@ def main():
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    check(set(errs) == set(variants),
+          f"variants checked {sorted(errs)} != {sorted(variants)}")
     log(card)
     log(json.dumps({"kernels": [dict(
-        KERNEL, launches=launches, max_abs_err=max_err, ms=ms_f,
-        plain_ms=plain_f, bound_ms=bound_f, bound_by=by_f,
-        library_ms=lib_f)]}))
+        name=vname, **KERNEL, launches=path_launches.get(vname, 0),
+        max_abs_err=errs[vname], ms=ms, plain_ms=plain, bound_ms=bound,
+        bound_by=by, library_ms=lib)
+        for vname, (ms, plain, lib, bound, by) in times.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

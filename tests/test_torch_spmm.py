@@ -216,8 +216,14 @@ def test_slice_hops_equals_plan_of_prefix_columns():
             assert (a.n_rows, a.n_cols) == (b.n_rows, b.n_cols)
             assert torch.equal(a.indptr, b.indptr)
             assert torch.equal(a.senders, b.senders)
-        for f in ("edge_recv", "edge_code", "hop_deg", "union_deg"):
+        assert torch.equal(sub.fwd.codes, ref.fwd.codes)
+        assert sub.bwd.codes is None and ref.bwd.codes is None
+        for f in ("edge_recv", "hop_deg", "union_deg"):
             assert torch.equal(getattr(sub, f), getattr(ref, f)), f
+        if k > 1:
+            assert torch.equal(sub.countsk_hm, ref.countsk_hm)
+        else:
+            assert sub.countsk_hm is None and ref.countsk_hm is None
 
 
 def test_plan_degrees_match_jax_coo():
