@@ -6,7 +6,7 @@
 Phases, each of which fails the run loudly:
   1. build  — compile every CUDA kernel of the main path from this
      checkout's sources (csrc/, nvcc for sm_90a); print the card, its power
-     limit and the build seconds;
+     limit, each source's build hash and the build seconds;
   2. check  — hold each kernel variant against its plain PyTorch version on
      the card, forward and autograd backward.  The gather: flagship plans
      (64 ZINC-shaped molecules, K=8, D=104, every hop prefix k=1..8) and
@@ -16,7 +16,9 @@ Phases, each of which fails the run loudly:
      hop prefix k=1..8, with autograd grads of x and both tables, and at
      k=8 in bf16, misaligned and D=13.  Together these take the 16-byte and
      the scalar variant in each direction.  Then three repeated launches of
-     every variant on one input must be bit-identical;
+     every variant on one input must be bit-identical (the gather over the
+     backward CSR, the fused form over the forward one, as the main path
+     runs them);
   3. train  — write a ZINC-format fixture (tools/make_zinc_fixture.py) and
      run ``kpgnn_tpu_torch.scripts.train_zinc.main`` at the flagship's
      full width (KPGINPlus K=8 L=8 H=104, attention combine, JK concat,
@@ -26,13 +28,13 @@ Phases, each of which fails the run loudly:
      the same step on the CPU;
   4. time   — on the flagship k=8 plan (CUDA events, after warm-up,
      rotating distinct inputs), each beside the least time the card could
-     take: every kernel variant, its plain version and, for the gather,
-     one ``torch.sparse.mm`` call; the gather backward; the unfused
+     take: every kernel variant on the CSR where the main path launches it
+     (the gather over the backward CSR, the fused form over the forward
+     one), its plain version and, for the gather, one ``torch.sparse.mm``
+     call; the gather over the forward CSR likewise; the unfused
      composition the fused forward replaces (kernel + k ``counts @ table``
-     GEMMs + stack + add); the kernel's tile (rows per warp) at four sizes,
-     and its grid in row order instead of live runs first; and the
-     flagship train step, with its device time by kernel from
-     torch.profiler.
+     GEMMs + stack + add); and the flagship train step, with its device
+     time by kernel from torch.profiler.
 The last lines are the card's name and power limit, a ``kernels`` JSON
 line (one entry per kernel variant), and ``{"ok": true, "device": {...}}``.
 
@@ -219,6 +221,9 @@ def main():
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: this smoke "
                            "run needs an NVIDIA GPU")
+    check(os.path.isdir(os.path.join(ROOT, "kpgnn_tpu_torch")),
+          f"no kpgnn_tpu_torch package beside {__file__}: run this script "
+          f"from a checkout of the repo")
     sys.path.insert(0, ROOT)
     import kpgnn_tpu_torch
     check(os.path.dirname(os.path.abspath(kpgnn_tpu_torch.__file__))
@@ -241,7 +246,9 @@ def main():
 
     # ---- 1. build ----
     secs = cuda_lib.build_all([spmm.KERNEL_SOURCE])
-    log(f"[build] {kind} ({card}); nvcc seconds: {json.dumps(secs)}")
+    hashes = {s: cuda_lib.source_hash(s) for s in secs}
+    log(f"[build] {kind} ({card}); source hash {json.dumps(hashes)}; nvcc "
+        f"seconds: {json.dumps(secs)}")
 
     work = tempfile.mkdtemp(prefix="kpgnn_smoke_")
     try:
@@ -452,35 +459,32 @@ def main():
                       dtype=torch.bfloat16, mis=True)
         compare_fused(f"flagship k={K} D=13", plan, 13)
 
-        # determinism: three launches of every variant on one input
+        # determinism: three launches of every variant on one input, each
+        # on the CSR where the main path launches it
         fwd, bwd = plan.fwd, plan.bwd
         t1 = torch.randn(V1, H, device=dev, generator=gen)
         tk = torch.randn(VK, H, device=dev, generator=gen)
         tabs = dict(codes=fwd.codes, table1=t1, tablek=tk)
-        x32 = torch.randn(fwd.n_cols, H, device=dev, generator=gen)
-        x16 = x32.to(torch.bfloat16)
-        variants = {}               # variant -> (timed inputs, tables)
-        for dtype, xv in ((torch.float32, x32), (torch.bfloat16, x16)):
-            for mis in (False, True):
-                for fused in (False, True):
-                    inputs = [xv if j == 0 else
-                              torch.randn_like(x32, dtype=torch.float32
-                                               ).to(dtype) for j in range(8)]
+        variants = {}               # variant -> (csr, timed inputs, tables)
+        for fused in (False, True):
+            csr = fwd if fused else bwd
+            x32 = [torch.randn(csr.n_cols, H, device=dev, generator=gen)
+                   for _ in range(8)]
+            for dtype in (torch.float32, torch.bfloat16):
+                for mis in (False, True):
+                    inputs = [v.to(dtype) for v in x32]
                     if mis:
                         inputs = [misalign(v) for v in inputs]
                     variants[spmm.variant_name(dtype, not mis, fused)] = (
-                        inputs, tabs if fused else {})
-        for vname, (inputs, kw) in variants.items():
-            outs, v = launched(spmm, lambda: [fwd.gather(inputs[0], **kw)
+                        csr, inputs, tabs if fused else {})
+        for vname, (csr, inputs, kw) in variants.items():
+            outs, v = launched(spmm, lambda: [csr.gather(inputs[0], **kw)
                                               for _ in range(3)])
             check(v == {vname: 3}, f"determinism: {vname} launched {v}")
             check(all(torch.equal(outs[0], o) for o in outs[1:]),
                   f"{vname}: three launches on one input differ")
-        outs = [bwd.gather(x32) for _ in range(3)]
-        check(all(torch.equal(outs[0], o) for o in outs[1:]),
-              "gather over bwd: three launches on one input differ")
         log(f"[check] determinism: 3 launches bit-identical for each of "
-            f"{len(variants)} variants and the backward gather")
+            f"{len(variants)} variants")
 
         # ---- 3. the main path: train_zinc at full width ----
         rows = []
@@ -490,8 +494,8 @@ def main():
             train_argv(work, os.path.join(work, "save"), "cuda"),
             epoch_callback=lambda e, m, row: rows.append(row))
         torch.cuda.synchronize()
-        launches = spmm.gather_segment_sum.launches
         path_launches = dict(spmm.gather_segment_sum.variant_launches)
+        launches = sum(path_launches.values())
         train_s = time.perf_counter() - t0
         n_train = math.ceil(N_TRAIN / BATCH)
         n_eval = math.ceil(N_VAL / BATCH) + math.ceil(N_TEST / BATCH)
@@ -519,12 +523,12 @@ def main():
         first = next(it)
         it.close()
         cpu_model = init_parameters(make_model(mcfg), SEED)
-        before = spmm.gather_segment_sum.launches
+        before = dict(spmm.gather_segment_sum.variant_launches)
         with torch.no_grad():
             pred = cpu_model(first, train=True)
             lsum, cnt = _masked_loss(pred, first.y, first.graph_mask, "l1")
         cpu_loss = float(lsum / cnt)
-        check(spmm.gather_segment_sum.launches == before,
+        check(dict(spmm.gather_segment_sum.variant_launches) == before,
               "the CPU step launched the kernel")
         rel = abs(losses[0] - cpu_loss) / abs(cpu_loss)
         log(f"[train] first-step loss GPU {losses[0]:.7f} CPU "
@@ -552,35 +556,37 @@ def main():
             return time_ms(torch, lambda x: torch.sparse.mm(a, x), inputs)
 
         n = plan.counts1.shape[0]
-        times = {}
-        for vname, (inputs, kw) in variants.items():
-            fused = bool(kw)
-            ms, v = launched(spmm, lambda: time_ms(
-                torch, lambda x: fwd.gather(x, **kw), inputs))
-            check(set(v) == {vname}, f"timing {vname} launched {v}")
-            kw_ref = dict(kw, rows_per_hop=n) if fused else {}
+
+        def timed(csr, inputs, kw):
+            """(ms, plain ms, library ms, bound ms, bound by) of the kernel
+            over csr."""
+            ms = time_ms(torch, lambda x: csr.gather(x, **kw), inputs)
+            kw_ref = dict(kw, rows_per_hop=csr.rows_per_hop) if kw else {}
             plain = time_ms(torch, lambda x: spmm.gather_segment_sum_reference(
-                x, fwd.indptr, fwd.senders, fwd.n_rows, **kw_ref), inputs)
-            lib = None if fused else library_ms(fwd, inputs)
-            bound, by = kernel_bound_ms(fwd, H, inputs[0].element_size(),
-                                        fused)
-            times[vname] = (ms, plain, lib, bound, by)
-            log(f"[time] {vname} fwd {ms:.4f} ms (plain {plain:.4f}, "
-                f"torch.sparse.mm "
-                f"{'none' if lib is None else format(lib, '.4f')}, bound "
-                f"{bound:.4f} by {by})")
-        gs = [torch.randn(bwd.n_cols, H, device=dev) for _ in range(8)]
-        ms_b = time_ms(torch, lambda g: bwd.gather(g), gs)
-        plain_b = time_ms(torch, lambda g: spmm.gather_segment_sum_reference(
-            g, bwd.indptr, bwd.senders, bwd.n_rows), gs)
-        lib_b = library_ms(bwd, gs)
-        bound_b, by_b = kernel_bound_ms(bwd, H, 4)
+                x, csr.indptr, csr.senders, csr.n_rows, **kw_ref), inputs)
+            lib = None if kw else library_ms(csr, inputs)
+            bound, by = kernel_bound_ms(csr, H, inputs[0].element_size(),
+                                        bool(kw))
+            return ms, plain, lib, bound, by
+
+        def show(t):
+            ms, plain, lib, bound, by = t
+            return (f"{ms:.4f} ms (plain {plain:.4f}, torch.sparse.mm "
+                    f"{'none' if lib is None else format(lib, '.4f')}, bound "
+                    f"{bound:.4f} by {by})")
+
+        times = {}
+        for vname, (csr, inputs, kw) in variants.items():
+            times[vname], v = launched(spmm, lambda: timed(csr, inputs, kw))
+            check(set(v) == {vname}, f"timing {vname} launched {v}")
+            log(f"[time] {vname} over {'fwd' if kw else 'bwd'} "
+                f"{show(times[vname])}")
+        xs = variants[fused_v][1]       # f32 inputs with fwd.n_cols rows
+        gather_f = timed(fwd, xs, {})
         n_e = fwd.senders.shape[0]
-        ms_f = times[gather_v][0]
-        log(f"[time] {gather_v} bwd {ms_b:.4f} ms (plain {plain_b:.4f}, "
-            f"torch.sparse.mm {lib_b:.4f}, bound {bound_b:.4f} by {by_b}); "
-            f"flagship k=8 plan {fwd.n_rows} rows x D {H}, {n_e} edges; fwd "
-            f"{n_e / ms_f / 1e3:.1f}M hop-edges/s")
+        log(f"[time] {gather_v} over fwd {show(gather_f)}; flagship "
+            f"k={K} plan {fwd.n_rows} rows x D {H}, {n_e} edges; "
+            f"{n_e / gather_f[0] / 1e3:.1f}M hop-edges/s")
 
         # the unfused composition the fused forward replaces: the gather,
         # then k counts @ table GEMMs on zero-row-0 tables, stack, add
@@ -593,37 +599,14 @@ def main():
             parts = [plan.counts1 @ t1z] + [countsk_nm[:, k - 1] @ tkz
                                             for k in range(1, K)]
             return out + torch.stack(parts, dim=0)
-        xs = variants[gather_v][0]
         got, want = unfused(xs[0]).reshape(-1, H), fwd.gather(xs[0], **tabs)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4,
                                    msg=lambda m: f"unfused vs fused: {m}")
         ms_unf = time_ms(torch, unfused, xs)
-        ms_fused = times[fused_v][0]
-        log(f"[time] fused forward {ms_fused:.4f} ms vs the unfused "
-            f"composition it replaces {ms_unf:.4f} ms (gather + {K} GEMMs "
-            f"+ stack + add; bound {times[fused_v][3]:.4f}); gather alone "
-            f"{ms_f:.4f} ms")
-
-        # the kernel's tile: rows per warp
-        sweep, keep = [], spmm.ROWS_PER_WARP
-        try:
-            for rpw in (1, 2, 4, 8):
-                spmm.ROWS_PER_WARP = rpw
-                fused_ms = time_ms(torch, lambda x: fwd.gather(x, **tabs), xs)
-                sweep.append(
-                    f"{rpw}: fwd {time_ms(torch, fwd.gather, xs):.4f} bwd "
-                    f"{time_ms(torch, bwd.gather, gs):.4f} fused "
-                    f"{fused_ms:.4f}")
-        finally:
-            spmm.ROWS_PER_WARP = keep
-        # without hop_live the runs go to the grid in row order, so the
-        # padding's zero runs are not overlapped with the live rows' chains
-        in_order = [time_ms(torch, lambda x: spmm.gather_segment_sum(
-            x, c.indptr, c.senders, c.n_rows), v) for c, v in ((fwd, xs),
-                                                              (bwd, gs))]
-        log(f"[tile] rows per warp (used: {spmm.ROWS_PER_WARP}) -> ms; "
-            + "; ".join(sweep) + f"; runs in row order instead of live "
-            f"first: fwd {in_order[0]:.4f} bwd {in_order[1]:.4f}")
+        log(f"[time] fused forward {times[fused_v][0]:.4f} ms vs the "
+            f"unfused composition it replaces {ms_unf:.4f} ms (gather + {K} "
+            f"GEMMs + stack + add; bound {times[fused_v][3]:.4f}); gather "
+            f"alone {gather_f[0]:.4f} ms")
 
         # flagship train step on one fixed batch
         model = init_parameters(make_model(mcfg), SEED).to(dev)

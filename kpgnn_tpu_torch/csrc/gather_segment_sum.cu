@@ -30,18 +30,20 @@
 //
 // Design:
 //  * A group of G lanes (G = 16 or 32, the least that covers a row in one
-//    pass where it can) owns a run of R consecutive rows (the wrapper's
-//    ROWS_PER_WARP per warp).  The run's indptr is read with one coalesced
-//    load (lane j holds row j's range) and broadcast by shuffle.  A run's
-//    edges are contiguous, so the group streams them as one list: sender
-//    ids G at a time (one per lane), then kDepth gathered rows in flight
-//    before they are added, across row boundaries; a row is stored when
-//    the stream passes its end.
+//    pass where it can) owns a run of R consecutive rows (kRowsPerWarp per
+//    warp, measured on the flagship plan).  The run's indptr is read with
+//    one coalesced load (lane j holds row j's range) and broadcast by
+//    shuffle.  A run's edges are contiguous, so the group streams them as
+//    one list: sender ids G at a time (one per lane), then kDepth gathered
+//    rows in flight before they are added, across row boundaries; a row is
+//    stored when the stream passes its end.
 //  * Live runs first: the plan knows on the host where each hop's last row
 //    with an edge is (hop_live), so the grid's first groups take every
 //    hop's live runs and start their latency chains at once; the groups
 //    after them take the dead suffixes (the padding) and only store zeros,
 //    16 bytes per lane, without reading anything, while the chains wait.
+//    A run never crosses a hop boundary, so its table is known up front.
+//    A CSR without hop structure is one hop, all of it live.
 //  * 16-byte loads and stores: a lane owns 4 f32 or 8 bf16 columns of a row
 //    (f32 D = 104 is 26 lanes; bf16 D = 104 is 13 lanes of a 16-lane group,
 //    two groups per warp).  x, the indices and the tables go through the
@@ -66,7 +68,14 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kDepth = 4;           // gathered rows in flight per lane
-constexpr int kMaxHops = 16;        // hops whose dead suffix is passed in
+constexpr int kRowsPerWarp = 2;     // receiver rows a warp owns
+constexpr int kMaxHops = 16;        // hops a launch's run map holds
+
+// rows a group of G lanes owns (a 16-lane group owns half a warp's)
+template <int G>
+__host__ __device__ constexpr int rows_per_group() {
+  return kRowsPerWarp * G / 32;
+}
 
 struct Args {
   const void* x;
@@ -76,22 +85,15 @@ struct Args {
   const float* table1;
   const float* tablek;
   float* out;
-  int n_rows, n_cols, D, rows_per_hop, v1, vk, rows_per_warp;
-  // rows [k*rows_per_hop + hop_live[k], (k+1)*rows_per_hop) have no edge
-  // (the loader's padding); n_hops = 0 when not given for every row
-  int n_hops;
-  int hop_live[kMaxHops];
+  int n_rows, n_cols, D, rows_per_hop, v1, vk;
+  int n_hops;                       // n_hops * rows_per_hop == n_rows
 };
 
-// Which run a group owns.  With the hop structure (n_hops > 0), groups
-// [0, live[n_hops]) take the runs of every hop's live prefix, hop by hop,
-// so the latency-bound gathers all start first; the groups after them
-// take the runs of the dead suffixes, which are only stored as zeros.
-// Runs never cross a hop boundary then.  Without it, group g owns rows
-// [g*R, g*R + R).
+// Which run a group owns.  Groups [0, live[n_hops]) take the runs of
+// every hop's live prefix, hop by hop, so the latency-bound gathers all
+// start first; the groups after them take the runs of the dead suffixes,
+// which are only stored as zeros.  Runs never cross a hop boundary.
 struct RunMap {
-  int R;                      // rows per run
-  int n_hops;
   int live[kMaxHops + 1];     // prefix sums of live runs per hop
   int dead[kMaxHops + 1];     // prefix sums of dead runs per hop
 };
@@ -168,29 +170,22 @@ gather_segment_sum_kernel(Args a, RunMap m) {
   const int gl = lane & (G - 1);
   const unsigned gmask =
       G == 32 ? 0xffffffffu : ((1u << G) - 1u) << (lane & ~(G - 1));
-  const int R = m.R;
+  constexpr int R = rows_per_group<G>();
   const int g = blockIdx.x * (kThreads / G) + threadIdx.x / G;
-  int row0, nrun;                           // all group-uniform
-  bool dead = false;
-  if (m.n_hops > 0) {
-    const int rph = a.rows_per_hop;
-    int k = 0;
-    if (g < m.live[m.n_hops]) {
-      while (g >= m.live[k + 1]) ++k;
-      row0 = k * rph + (g - m.live[k]) * R;
-    } else {
-      const int gd = g - m.live[m.n_hops];
-      if (gd >= m.dead[m.n_hops]) return;
-      while (gd >= m.dead[k + 1]) ++k;
-      row0 = k * rph + (m.live[k + 1] - m.live[k] + gd - m.dead[k]) * R;
-      dead = true;
-    }
-    nrun = min(R, (k + 1) * rph - row0);
+  const int rph = a.rows_per_hop;
+  const int n_live = m.live[a.n_hops];
+  const bool dead = g >= n_live;            // all group-uniform
+  int k = 0, row0;
+  if (!dead) {
+    while (g >= m.live[k + 1]) ++k;
+    row0 = k * rph + (g - m.live[k]) * R;
   } else {
-    if (static_cast<int64_t>(g) * R >= a.n_rows) return;
-    row0 = g * R;
-    nrun = min(R, a.n_rows - row0);
+    const int gd = g - n_live;
+    if (gd >= m.dead[a.n_hops]) return;
+    while (gd >= m.dead[k + 1]) ++k;
+    row0 = k * rph + (m.live[k + 1] - m.live[k] + gd - m.dead[k]) * R;
   }
+  const int nrun = min(R, (k + 1) * rph - row0);
   const int C = a.D / N;                    // lane chunks per row
   float acc[N];
 #pragma unroll
@@ -210,13 +205,9 @@ gather_segment_sum_kernel(Args a, RunMap m) {
   }
   const int e_lo = __shfl_sync(gmask, lo, 0, G);
   const int e_hi = __shfl_sync(gmask, hi, nrun - 1, G);
-  // edges from e_k on are in rows of hop >= 1 and read tablek
-  int e_k = e_hi;
-  if (kFused) {
-    const int rb = a.rows_per_hop - row0;   // first hop-1 row, run-relative
-    if (rb <= 0) e_k = e_lo;
-    else if (rb < nrun) e_k = __shfl_sync(gmask, lo, rb, G);
-  }
+  // the run's hop picks its table: T_0 = table1, T_k>=1 = tablek
+  const float* tab = k > 0 ? a.tablek : a.table1;
+  const int v_tab = k > 0 ? a.vk : a.v1;
 
   // 32-bit offsets: the wrapper bounds n_rows*D and n_cols*D below 2^31
   const int D = a.D;
@@ -255,9 +246,7 @@ gather_segment_sum_kernel(Args a, RunMap m) {
             for (int j = 0; j < N; ++j) acc[j] += v[u][j];
             if (kFused) {                      // table row: an L1 hit
               const int c = __shfl_sync(gmask, my_c, t + u, G);
-              const bool hk = e >= e_k;
-              const bool okt = col_ok && c > 0 && c < (hk ? a.vk : a.v1);
-              const float* tab = hk ? a.tablek : a.table1;
+              const bool okt = col_ok && c > 0 && c < v_tab;
               float w[N];
               load_table<N>(tab + ((okt ? c : 0) * D + col), okt, w);
 #pragma unroll
@@ -273,20 +262,17 @@ gather_segment_sum_kernel(Args a, RunMap m) {
 }
 
 template <typename T, bool kVec, bool kFused, int G>
-void launch_g(const Args& a, cudaStream_t stream) {
+void launch_g(const Args& a, const int* hop_live, cudaStream_t stream) {
+  constexpr int R = rows_per_group<G>();
+  static_assert(R >= 1 && R <= G, "a run is at most one row per lane");
+  const int rph = a.rows_per_hop;
   RunMap m{};
-  m.R = max(1, min(G, a.rows_per_warp * G / 32));
-  const int R = m.R, rph = a.rows_per_hop;
-  int groups = (a.n_rows + R - 1) / R;
-  if (a.n_hops > 0 && static_cast<int64_t>(a.n_hops) * rph == a.n_rows) {
-    m.n_hops = a.n_hops;
-    for (int k = 0; k < m.n_hops; ++k) {
-      const int live = (a.hop_live[k] + R - 1) / R;
-      m.live[k + 1] = m.live[k] + live;
-      m.dead[k + 1] = m.dead[k] + (rph - min(rph, live * R) + R - 1) / R;
-    }
-    groups = m.live[m.n_hops] + m.dead[m.n_hops];
+  for (int k = 0; k < a.n_hops; ++k) {
+    const int live = (hop_live[k] + R - 1) / R;
+    m.live[k + 1] = m.live[k] + live;
+    m.dead[k + 1] = m.dead[k] + (rph - min(rph, live * R) + R - 1) / R;
   }
+  const int groups = m.live[a.n_hops] + m.dead[a.n_hops];
   const int per_block = kThreads / G;
   const int blocks = (groups + per_block - 1) / per_block;
   if (blocks > 0)
@@ -295,61 +281,52 @@ void launch_g(const Args& a, cudaStream_t stream) {
 }
 
 template <typename T, bool kVec, bool kFused>
-void launch_v(const Args& a, cudaStream_t stream) {
+void launch_v(const Args& a, const int* hop_live, cudaStream_t stream) {
   const int C = a.D / (kVec ? 16 / static_cast<int>(sizeof(T)) : 1);
-  if (C > 16) launch_g<T, kVec, kFused, 32>(a, stream);
-  else launch_g<T, kVec, kFused, 16>(a, stream);
+  if (C > 16) launch_g<T, kVec, kFused, 32>(a, hop_live, stream);
+  else launch_g<T, kVec, kFused, 16>(a, hop_live, stream);
 }
 
 template <typename T>
-int launch(const Args& a, int vec, void* stream_ptr) {
+int launch(const Args& a, int vec, const int* hop_live, void* stream_ptr) {
+  if (a.n_rows == 0 || a.D == 0) return static_cast<int>(cudaSuccess);
+  if (a.n_hops < 1 || a.n_hops > kMaxHops ||
+      static_cast<int64_t>(a.n_hops) * a.rows_per_hop != a.n_rows)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (a.n_rows > 0 && a.D > 0 && a.rows_per_warp > 0) {
-    const bool fused = a.codes != nullptr;
-    if (vec) {
-      if (fused) launch_v<T, true, true>(a, stream);
-      else launch_v<T, true, false>(a, stream);
-    } else {
-      if (fused) launch_v<T, false, true>(a, stream);
-      else launch_v<T, false, false>(a, stream);
-    }
+  const bool fused = a.codes != nullptr;
+  if (vec) {
+    if (fused) launch_v<T, true, true>(a, hop_live, stream);
+    else launch_v<T, true, false>(a, hop_live, stream);
+  } else {
+    if (fused) launch_v<T, false, true>(a, hop_live, stream);
+    else launch_v<T, false, false>(a, hop_live, stream);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-Args make_args(const void* x, const void* indptr, const void* senders,
-               const void* codes, const void* table1, const void* tablek,
-               void* out, int n_rows, int n_cols, int D, int rows_per_hop,
-               int v1, int vk, int rows_per_warp, const int* hop_live,
-               int n_hops) {
-  Args a{x, static_cast<const int*>(indptr),
-         static_cast<const int*>(senders), static_cast<const int*>(codes),
-         static_cast<const float*>(table1), static_cast<const float*>(tablek),
-         static_cast<float*>(out), n_rows, n_cols, D, rows_per_hop, v1, vk,
-         rows_per_warp, rows_per_hop > 0 ? min(n_hops, kMaxHops) : 0, {}};
-  for (int k = 0; k < a.n_hops; ++k) a.hop_live[k] = hop_live[k];
-  return a;
 }
 
 }  // namespace
 
 // codes == nullptr: the plain gather (table arguments ignored).  vec != 0
 // takes the 16-byte variant: the caller guarantees 16-byte aligned x,
-// tables and out, and D*sizeof(x) a multiple of 16.  hop_live (host
-// memory, n_hops entries): the caller guarantees that rows at or past
-// hop_live[k] within hop k have no edge.  Returns the cudaError_t of the
-// launch.
+// tables and out, and D*sizeof(x) a multiple of 16.  The rows are n_hops
+// hops of rows_per_hop (1 <= n_hops <= kMaxHops); hop_live (host memory,
+// n_hops entries, each in [0, rows_per_hop]): the caller guarantees that
+// rows at or past hop_live[k] within hop k have no edge.  Returns the
+// cudaError_t of the launch (cudaErrorInvalidValue for a bad hop layout).
 #define KPGNN_GSS_ENTRY(NAME, T)                                              \
   extern "C" int NAME(const void* x, const void* indptr, const void* senders, \
                       const void* codes, const void* table1,                  \
                       const void* tablek, void* out, int n_rows, int n_cols,  \
                       int D, int rows_per_hop, int v1, int vk, int vec,       \
-                      int rows_per_warp, const int* hop_live, int n_hops,     \
-                      void* stream) {                                         \
-    return launch<T>(make_args(x, indptr, senders, codes, table1, tablek,    \
-                               out, n_rows, n_cols, D, rows_per_hop, v1, vk, \
-                               rows_per_warp, hop_live, n_hops),             \
-                     vec, stream);                                           \
+                      const int* hop_live, int n_hops, void* stream) {        \
+    const Args a{x, static_cast<const int*>(indptr),                          \
+                 static_cast<const int*>(senders),                            \
+                 static_cast<const int*>(codes),                              \
+                 static_cast<const float*>(table1),                           \
+                 static_cast<const float*>(tablek), static_cast<float*>(out), \
+                 n_rows, n_cols, D, rows_per_hop, v1, vk, n_hops};            \
+    return launch<T>(a, vec, hop_live, stream);                               \
   }
 
 KPGNN_GSS_ENTRY(kpgnn_gather_segment_sum_f32, float)

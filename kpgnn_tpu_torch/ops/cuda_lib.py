@@ -42,11 +42,17 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(source: str) -> str:
+def source_hash(source: str) -> str:
+    """The build key of ``csrc/<source>``: a hash of its text and the nvcc
+    flags (16 hex digits)."""
     with open(os.path.join(CSRC, source), "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return digest.hexdigest()[:16]
+
+
+def _lib_path(source: str) -> str:
     stem = os.path.splitext(source)[0]
-    return os.path.join(BUILD_ROOT, digest.hexdigest()[:16], f"lib{stem}.so")
+    return os.path.join(BUILD_ROOT, source_hash(source), f"lib{stem}.so")
 
 
 def build(source: str) -> str:

@@ -220,9 +220,9 @@ def build_plan(receivers, senders, attr, n_nodes: int, v1: int, vk: int,
         n_hops=K)
 
 
-# receiver rows per warp of the kernel (its tile; a 16-lane group owns
-# half); chip_smoke.py times the alternatives on the flagship plan
-ROWS_PER_WARP = 2
+# hops one launch can take (the kernel's kMaxHops; the repo's deepest
+# configuration, KPGINPrime, has K = 16)
+MAX_HOPS = 16
 
 
 def gather_segment_sum_reference(x: torch.Tensor, indptr: torch.Tensor,
@@ -280,8 +280,11 @@ def _check(x, indptr, senders, n_rows, codes, table1, tablek, rows_per_hop,
     if indptr.shape[0] != n_rows + 1:
         raise ValueError(f"indptr has {indptr.shape[0]} entries for "
                          f"{n_rows} rows")
+    if rows_per_hop > 0 and n_rows % rows_per_hop:
+        raise ValueError(f"{n_rows} rows are not whole hops of "
+                         f"{rows_per_hop} rows")
     if hop_live and (rows_per_hop <= 0
-                     or len(hop_live) > n_rows // rows_per_hop
+                     or len(hop_live) != n_rows // rows_per_hop
                      or not all(0 <= h <= rows_per_hop for h in hop_live)):
         raise ValueError(f"hop_live {hop_live} does not fit {n_rows} rows "
                          f"of {rows_per_hop} per hop")
@@ -306,6 +309,20 @@ def _check(x, indptr, senders, n_rows, codes, table1, tablek, rows_per_hop,
         raise ValueError("codes need rows_per_hop > 0")
 
 
+def hop_layout(n_rows: int, rows_per_hop: int,
+               hop_live: Tuple[int, ...]) -> Tuple[int, Tuple[int, ...]]:
+    """(rows_per_hop, hop_live) as the kernel takes them: rows without a
+    hop structure are one hop, and a hop without ``hop_live`` is live to
+    its end.  Raises beyond MAX_HOPS hops."""
+    if rows_per_hop <= 0:
+        return n_rows, (n_rows,)
+    n_hops = n_rows // rows_per_hop
+    if n_hops > MAX_HOPS:
+        raise ValueError(f"the kernel takes at most {MAX_HOPS} hops a "
+                         f"launch, got {n_hops}")
+    return rows_per_hop, tuple(hop_live) or (rows_per_hop,) * n_hops
+
+
 def gather_segment_sum(x: torch.Tensor, indptr: torch.Tensor,
                        senders: torch.Tensor, n_rows: int,
                        codes: Optional[torch.Tensor] = None,
@@ -320,7 +337,8 @@ def gather_segment_sum(x: torch.Tensor, indptr: torch.Tensor,
     rows), code 0 adding nothing: the k-hop aggregate's edge-embedding
     term.  ``hop_live`` (``HopCSR.hop_live``) promises that rows at or past
     hop_live[k] within hop k have no edge; the kernel writes them as zeros
-    without reading the CSR.
+    without reading the CSR.  ``rows_per_hop``, where given, divides
+    ``n_rows``.
 
     On a CUDA tensor this launches the hand-written kernel
     (csrc/gather_segment_sum.cu) on the current stream, or raises: its
@@ -345,24 +363,23 @@ def gather_segment_sum(x: torch.Tensor, indptr: torch.Tensor,
         raise ValueError("kernel indexes rows and edges with 32-bit ints")
     vec = (D * x.element_size()) % 16 == 0 and all(
         t.data_ptr() % 16 == 0 for t in (x, t1, tk) if t is not None)
+    rph, live = hop_layout(n_rows, rows_per_hop, hop_live)
     lib = cuda_lib.load(KERNEL_SOURCE)
     fn = (lib.kpgnn_gather_segment_sum_f32 if x.dtype == torch.float32
           else lib.kpgnn_gather_segment_sum_bf16)
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = torch.empty((n_rows, D), dtype=torch.float32, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rows = lambda t: 0 if t is None else t.shape[0]     # noqa: E731
     err = fn(x.data_ptr(), indptr.data_ptr(), senders.data_ptr(), ptr(codes),
-             ptr(t1), ptr(tk), out.data_ptr(), n_rows, n_cols, D,
-             rows_per_hop, rows(t1), rows(tk), int(vec), ROWS_PER_WARP,
-             (ctypes.c_int * len(hop_live))(*hop_live), len(hop_live),
-             torch.cuda.current_stream(x.device).cuda_stream)
+             ptr(t1), ptr(tk), out.data_ptr(), n_rows, n_cols, D, rph,
+             rows(t1), rows(tk), int(vec), (ctypes.c_int * len(live))(*live),
+             len(live), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gather_segment_sum kernel launch failed: "
                            f"cudaError {err}")
-    gather_segment_sum.launches += 1
     gather_segment_sum.variant_launches[
         variant_name(x.dtype, vec, fused)] += 1
     return out
@@ -376,11 +393,10 @@ def variant_name(dtype: torch.dtype, vec: bool, fused: bool) -> str:
 
 
 def reset_launch_counts() -> None:
-    gather_segment_sum.launches = 0
     gather_segment_sum.variant_launches.clear()
 
 
-gather_segment_sum.launches = 0                 # every kernel launch
+# every kernel launch, by variant_name
 gather_segment_sum.variant_launches = collections.Counter()
 
 

@@ -221,12 +221,10 @@ def test_khop_spmm_rejects_tables_of_other_vocabularies():
 def test_cpu_calls_count_no_launch_and_variant_names():
     senders, receivers, attr, x, t1, tk, w = padded_case(seed=3)
     plan = spmm.build_plan(receivers, senders, attr, x.shape[1], V1, VK)
-    before = (spmm.gather_segment_sum.launches,
-              dict(spmm.gather_segment_sum.variant_launches))
+    before = dict(spmm.gather_segment_sum.variant_launches)
     spmm.khop_spmm(*(torch.from_numpy(a) for a in (x, t1, tk)), plan,
                    hop_major=True)
-    assert (spmm.gather_segment_sum.launches,
-            dict(spmm.gather_segment_sum.variant_launches)) == before
+    assert dict(spmm.gather_segment_sum.variant_launches) == before
     assert spmm.variant_name(torch.float32, True, True) \
         == "gather_segment_sum_fused[f32,vec]"
     assert spmm.variant_name(torch.bfloat16, False, False) \
@@ -260,3 +258,28 @@ def test_gather_rejects_hop_live_that_does_not_fit():
         kw.update(bad)
         with pytest.raises(ValueError, match="hop_live"):
             spmm.gather_segment_sum(x, csr.indptr, csr.senders, 8, **kw)
+
+
+def test_gather_rejects_rows_that_are_not_whole_hops():
+    csr, _ = spmm.build_csr(np.array([0, 5]), np.array([1, 0]), 8, 8, 4)
+    with pytest.raises(ValueError, match="whole hops"):
+        spmm.gather_segment_sum(torch.ones(8, 4), csr.indptr, csr.senders, 8,
+                                rows_per_hop=3)
+
+
+@pytest.mark.parametrize("rows_per_hop, hop_live, expect", [
+    (0, (), (8, (8,))),                 # no hop structure: one live hop
+    (4, (), (4, (4, 4))),               # hops live to their end
+    (4, (1, 0), (4, (1, 0))),           # the plan's own
+    (0, (), (0, (0,))),                 # no rows
+])
+def test_hop_layout_is_what_the_kernel_takes(rows_per_hop, hop_live, expect):
+    n_rows = expect[0] * len(expect[1])
+    assert spmm.hop_layout(n_rows, rows_per_hop, hop_live) == expect
+
+
+def test_hop_layout_raises_beyond_the_kernels_hops():
+    n = spmm.MAX_HOPS
+    assert spmm.hop_layout(2 * n, 2, ()) == (2, (2,) * n)
+    with pytest.raises(ValueError, match="at most"):
+        spmm.hop_layout(2 * (n + 1), 2, ())
