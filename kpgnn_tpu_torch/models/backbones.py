@@ -1,14 +1,19 @@
 """GNN backbones (counterpart of kpgnn_tpu/models/backbones.py).
 
-This slice ports ``GNNPlus`` (the KP-GIN+ framework, the flagship's
-backbone) with its shared machinery: the peripheral embeddings, the
-virtual node, jumping knowledge and the masked batch norm.  ``GNN`` and
-``GNNPrime`` are not ported yet (ROADMAP.md, Queue 1).  Every update is
-written out of place so autograd sees each intermediate.
+Three families:
+  * ``GNN``      — a stack of identical KP layers (hidden split across
+                   hops);
+  * ``GNNPlus``  — KP-GIN+ layers whose hop axis is the window of the
+                   last k = min(l + 1, K) layer outputs;
+  * ``GNNPrime`` — num_l1_layer K-hop layers, then plain 1-hop GINE
+                   layers.
+Shared machinery: the peripheral embeddings (computed once per forward),
+the virtual node, jumping knowledge and the masked norms.  Every update
+is written out of place so autograd sees each intermediate.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -18,7 +23,10 @@ from ..graph.batch import GraphBatch
 from ..nn.basic import MLP, TorchLinear
 from ..nn.encoders import FeatureConcatEncoder
 from ..nn.inits import normal_
-from ..nn.norms import MaskedBatchNorm
+from ..nn.layers import GINEConv
+from ..nn.norms import (GraphSizeNorm, MaskedBatchNorm, MaskedGraphLayerNorm,
+                        MaskedInstanceNorm, PairNorm)
+from ..ops.adjacency import hop_major_native
 from ..ops.lstm import BiLSTM
 from ..ops.segment import segment_sum
 
@@ -38,15 +46,26 @@ def _dropout(x: torch.Tensor, rate: float, train: bool,
 def _make_norm(norm_type: str, features: int) -> nn.Module:
     if norm_type == "Batch":
         return MaskedBatchNorm(features)
-    if norm_type in ("Layer", "Instance", "GraphSize", "Pair"):
-        raise NotImplementedError(
-            f"norm {norm_type!r} is not ported yet (ROADMAP.md, Queue 1)")
+    if norm_type == "Layer":
+        return MaskedGraphLayerNorm(features)
+    if norm_type == "Instance":
+        return MaskedInstanceNorm()
+    if norm_type == "GraphSize":
+        return GraphSizeNorm()
+    if norm_type == "Pair":
+        return PairNorm()
     raise ValueError("Not supported norm method")
 
 
 def _apply_norm(norm: nn.Module, x: torch.Tensor, batch: GraphBatch,
                 train: bool) -> torch.Tensor:
-    return norm(x, mask=batch.node_mask, use_running_average=not train)
+    """One per-layer norm with its masking inputs (the JAX package's
+    switch, kpgnn_tpu/models/backbones.py:52-76)."""
+    if isinstance(norm, MaskedBatchNorm):
+        return norm(x, mask=batch.node_mask, use_running_average=not train)
+    if isinstance(norm, PairNorm):
+        return norm(x, mask=batch.node_mask)
+    return norm(x, batch.node_graph_ids, batch.g_pad, mask=batch.node_mask)
 
 
 class _PeripheralEmbed(nn.Module):
@@ -143,13 +162,17 @@ def _jumping_knowledge(JK: str, h_list: List[torch.Tensor],
     raise ValueError(f"unknown JK {JK!r}")
 
 
-class GNNPlus(nn.Module):
-    """KP-GIN+ framework: layer l's hop axis is the window of the last
-    k = min(l + 1, K) layer outputs."""
+class _Backbone(nn.Module):
+    """What the three backbones share: the encoder (plus
+    ``rd_projection``), the gated peripheral embedding, the virtual node,
+    a norm after each layer, jumping knowledge and the output projection.
+    ``layers`` are (name, module) pairs, each registered before its
+    norm."""
 
     def __init__(self, num_layer: int, hidden_size: int, K: int,
-                 layer_fn: Callable[[int], nn.Module],
-                 init_encoder: nn.Module, num_hop1_edge: int = 1,
+                 init_encoder: nn.Module,
+                 layers: Sequence[Tuple[str, nn.Module]],
+                 peripheral_width: int, gate: str, num_hop1_edge: int = 1,
                  max_edge_count: int = 0, max_hop_num: int = 0,
                  max_distance_count: int = 0, JK: str = "last",
                  norm_type: str = "Batch", virtual_node: bool = True,
@@ -158,8 +181,6 @@ class GNNPlus(nn.Module):
                  wo_peripheral_configuration: bool = False,
                  drop_prob: float = 0.1):
         super().__init__()
-        if num_layer < K:
-            raise ValueError("GNNPlus needs num_layer >= K")
         H, L = hidden_size, num_layer
         self.H, self.K, self.L = H, K, L
         self.JK, self.residual, self.use_rd = JK, residual, use_rd
@@ -168,59 +189,156 @@ class GNNPlus(nn.Module):
         if use_rd:
             self.rd_projection = TorchLinear(1, H)
         self.peripheral = _PeripheralEmbed(
-            H, num_hop1_edge, max_edge_count, max_hop_num,
+            peripheral_width, num_hop1_edge, max_edge_count, max_hop_num,
             max_distance_count, wo_peripheral_edge,
-            wo_peripheral_configuration, gate="tanh")
+            wo_peripheral_configuration, gate=gate)
         self.virtualnode = _VirtualNode(H, L) if virtual_node else None
-        for l in range(L):                                  # noqa: E741
-            self.add_module(f"gnn{l}", layer_fn(l))
+        for l, (name, layer) in enumerate(layers):          # noqa: E741
+            self.add_module(name, layer)
             self.add_module(f"norm{l}", _make_norm(norm_type, H))
         if JK == "attention":
             self.attention_lstm = BiLSTM(H, L)
         self.output_proj = TorchLinear(H * (L + 1) if JK == "concat" else H,
                                        H)
 
-    def forward(self, batch: GraphBatch, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        K, L = self.K, self.L
-
-        def dropout(v):
-            return _dropout(v, self.drop_prob, train, generator)
-
+    def _inputs(self, batch: GraphBatch, hop_major: bool):
+        """(x, peripheral, vn): the encoded nodes, the peripheral
+        embedding ((K, N, W) with ``hop_major``: one transpose per
+        forward) and the initial virtual-node state (or None)."""
         x = self.init_encoder(batch)
         if x.dim() == 3 and x.shape[1] == 1:
             x = x[:, 0]
         if self.use_rd and batch.rd is not None:
             x = x + self.rd_projection(batch.rd)
-        peripheral_hm = self.peripheral(batch, K).to(x.dtype).transpose(0, 1)
+        peripheral = self.peripheral(batch, self.K).to(x.dtype)
+        if hop_major:
+            peripheral = peripheral.transpose(0, 1)
+        vn = (self.virtualnode.initial(batch.g_pad)
+              if self.virtualnode is not None else None)
+        return x, peripheral, vn
 
-        vn_mod = self.virtualnode
-        vn = vn_mod.initial(batch.g_pad) if vn_mod is not None else None
-        gid = batch.node_graph_ids
-        h_list = [x]
-        last_h = x
-        for l in range(L):                                  # noqa: E741
+    def _layers(self, batch, h_list, vn, layer_call, layers, train,
+                generator, always_drop: bool, residual_pre_vn: bool = False):
+        """Run ``layer_call(l, h)`` for l in ``layers``, each followed by
+        its norm, dropout (every layer with ``always_drop``, else all but
+        the last), the residual and the virtual-node update; returns the
+        virtual-node state.  The residual adds the layer's input, or with
+        ``residual_pre_vn`` that input before the virtual node joined it
+        (GNNPlus's ``last_h``)."""
+        L, vn_mod = self.L, self.virtualnode
+        for l in layers:                                    # noqa: E741
+            pre = h_list[l]
             if vn_mod is not None:
-                h_list[l] = h_list[l] + vn[gid].to(h_list[l].dtype)
-            k = min(l + 1, K)
-            window = torch.stack([h_list[j] for j in range(l, l - k, -1)],
-                                 dim=0)                     # (k, N, H)
-            h = getattr(self, f"gnn{l}")(
-                window, batch.adj.slice_hops(k),
-                batch.pe_attr[:, :k - 1] if batch.pe_attr is not None
-                else None,
-                peripheral_hm[:k], node_mask=batch.node_mask, train=train)
+                h_list[l] = pre + vn[batch.node_graph_ids].to(pre.dtype)
+            h = layer_call(l, h_list[l])
             h = _apply_norm(getattr(self, f"norm{l}"), h, batch, train)
-            if l != L - 1:
-                h = dropout(h)
+            if always_drop or l != L - 1:
+                h = _dropout(h, self.drop_prob, train, generator)
             if self.residual:
-                h = h + last_h
-                last_h = h
+                h = h + (pre if residual_pre_vn else h_list[l])
             h_list.append(h)
             if vn_mod is not None and l < L - 1:
                 vn = vn_mod.update(l, h_list[l], vn, batch, train,
                                    self.residual, self.drop_prob, generator)
+        return vn
+
+    def _readout(self, h_list, train, generator) -> torch.Tensor:
         rep = _jumping_knowledge(self.JK, h_list,
                                  getattr(self, "attention_lstm", None))
         rep = self.output_proj(rep)
-        return dropout(F.relu(rep))
+        return _dropout(F.relu(rep), self.drop_prob, train, generator)
+
+
+class GNNPlus(_Backbone):
+    """KP-GIN+ framework: layer l's hop axis is the window of the last
+    k = min(l + 1, K) layer outputs; the peripheral embedding is full
+    width, behind a tanh gate."""
+
+    def __init__(self, num_layer: int, hidden_size: int, K: int,
+                 layer_fn: Callable[[int], nn.Module],
+                 init_encoder: nn.Module, **kw):
+        if num_layer < K:
+            raise ValueError("GNNPlus needs num_layer >= K")
+        super().__init__(num_layer, hidden_size, K, init_encoder,
+                         [(f"gnn{l}", layer_fn(l))
+                          for l in range(num_layer)],       # noqa: E741
+                         hidden_size, "tanh", **kw)
+
+    def forward(self, batch: GraphBatch, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x, peripheral_hm, vn = self._inputs(batch, hop_major=True)
+        h_list = [x]
+
+        def layer_call(l, h):                               # noqa: E741
+            k = min(l + 1, self.K)
+            window = torch.stack([h_list[j] for j in range(l, l - k, -1)],
+                                 dim=0)                     # (k, N, H)
+            return getattr(self, f"gnn{l}")(
+                window, batch.adj.slice_hops(k),
+                batch.pe_attr[:, :k - 1] if batch.pe_attr is not None
+                else None,
+                peripheral_hm[:k], node_mask=batch.node_mask, train=train)
+
+        self._layers(batch, h_list, vn, layer_call, range(self.L), train,
+                     generator, always_drop=False, residual_pre_vn=True)
+        return self._readout(h_list, train, generator)
+
+
+class GNN(_Backbone):
+    """A stack of ``num_layer`` identical KP layers; the peripheral
+    embedding has the layers' hop width d_k = H / K, behind a sigmoid
+    gate."""
+
+    def __init__(self, num_layer: int, hidden_size: int, K: int,
+                 layer_fn: Callable[[int], nn.Module],
+                 init_encoder: nn.Module, **kw):
+        super().__init__(num_layer, hidden_size, K, init_encoder,
+                         [(f"gnn{l}", layer_fn(l))
+                          for l in range(num_layer)],       # noqa: E741
+                         hidden_size // K, "sigmoid", **kw)
+
+    def forward(self, batch: GraphBatch, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x, peripheral, vn = self._inputs(batch, hop_major_native(batch.adj))
+        h_list = [x]
+        self._layers(batch, h_list, vn, lambda l, h: getattr(
+            self, f"gnn{l}")(h, batch.adj, batch.pe_attr, peripheral,
+                             node_mask=batch.node_mask, train=train),
+            range(self.L), train, generator, always_drop=False)
+        return self._readout(h_list, train, generator)
+
+
+class GNNPrime(_Backbone):
+    """``num_l1_layer`` K-hop layers, then 1-hop GINE layers, with GNN's
+    peripheral embedding.  Dropout follows every K-hop layer, the last
+    included (the reference's l1 loop drops unconditionally)."""
+
+    def __init__(self, num_layer: int, hidden_size: int, K: int,
+                 layer_fn: Callable[[int], nn.Module],
+                 init_encoder: nn.Module, num_l1_layer: int = 1, **kw):
+        if num_l1_layer < 1 or num_layer < 2:
+            raise ValueError("GNNPrime needs num_l1_layer >= 1 and "
+                             "num_layer >= 2")
+        layers = ([(f"khop_gnn{l}", layer_fn(l))
+                   for l in range(num_l1_layer)]            # noqa: E741
+                  + [(f"gine{l}", GINEConv(hidden_size,
+                                           kw.get("num_hop1_edge", 1)))
+                     for l in range(num_layer - num_l1_layer)])  # noqa: E741
+        super().__init__(num_layer, hidden_size, K, init_encoder, layers,
+                         hidden_size // K, "sigmoid", **kw)
+        self.L1 = num_l1_layer
+
+    def forward(self, batch: GraphBatch, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x, peripheral, vn = self._inputs(batch, hop_major_native(batch.adj))
+        h_list = [x]
+        vn = self._layers(batch, h_list, vn, lambda l, h: getattr(
+            self, f"khop_gnn{l}")(h, batch.adj, batch.pe_attr, peripheral,
+                                  node_mask=batch.node_mask, train=train),
+            range(self.L1), train, generator, always_drop=True)
+        self._layers(batch, h_list, vn, lambda l, h: getattr(
+            self, f"gine{l - self.L1}")(h, batch.adj,
+                                        node_mask=batch.node_mask,
+                                        train=train),
+            range(self.L1, self.L), train, generator, always_drop=False)
+        return self._readout(h_list, train, generator)

@@ -1,6 +1,8 @@
 """Typed model configuration and the model factory (counterpart of
-kpgnn_tpu/models/factory.py).  This slice builds KPGINPlus on GNNPlus;
-the other families raise."""
+kpgnn_tpu/models/factory.py).  Every family of ``MODEL_NAMES`` builds:
+KPGINPlus on GNNPlus, KPGINPrime on GNNPrime, KPGCN, KPGIN and
+KPGraphSAGE on GNN.  The node heads, the QM9 input encoder and bf16
+compute are not ported yet and raise."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,9 +10,9 @@ from typing import Tuple
 
 from torch import nn
 
-from ..nn.encoders import EmbeddingEncoder
+from ..nn.encoders import EmbeddingEncoder, LinearEncoder
 from ..nn.layers import make_gnn_layer
-from .backbones import GNNPlus
+from .backbones import GNN, GNNPlus, GNNPrime
 from .heads import GraphClassification, GraphRegression
 
 MODEL_NAMES = ("KPGCN", "KPGIN", "KPGraphSAGE", "KPGINPlus", "KPGINPrime")
@@ -79,23 +81,25 @@ def _make_encoder(cfg: ModelConfig) -> nn.Module:
     kind, arg = cfg.input_encoder
     if kind == "embedding":
         return EmbeddingEncoder(int(arg), cfg.hidden_size)
-    if kind in ("linear", "qm9"):
+    if kind == "linear":
+        return LinearEncoder(int(arg), cfg.hidden_size)
+    if kind == "qm9":
         raise _not_ported(f"the {kind!r} input encoder")
     raise ValueError(f"unknown input encoder {kind!r}")
 
 
 def make_model(cfg: ModelConfig) -> nn.Module:
-    """Encoder -> KP-GIN+ layers -> GNNPlus -> graph head.  Parameters
-    are uninitialized until ``nn.inits.init_parameters(model, seed)``."""
-    if cfg.model_name != "KPGINPlus":
-        raise _not_ported(f"model family {cfg.model_name}")
+    """Encoder -> KP layers -> backbone -> graph head.  Parameters are
+    uninitialized until ``nn.inits.init_parameters(model, seed)``.  As in
+    the JAX factory, ``cfg.eps`` reaches no layer: GIN layers start from
+    eps 0 (a parameter with ``train_eps``)."""
     if cfg.compute_dtype != "float32":
         raise _not_ported(f"compute_dtype {cfg.compute_dtype!r}")
     layer_fn = make_gnn_layer(
         cfg.model_name, cfg.hidden_size, cfg.K, num_layer=cfg.num_layer,
         num_hop1_edge=cfg.num_hop1_edge, num_pe=cfg.max_pe_num,
         combine=cfg.combine, aggr=cfg.aggr, train_eps=cfg.train_eps)
-    backbone = GNNPlus(
+    common = dict(
         num_layer=cfg.num_layer, hidden_size=cfg.hidden_size, K=cfg.K,
         layer_fn=layer_fn, init_encoder=_make_encoder(cfg),
         num_hop1_edge=cfg.num_hop1_edge, max_edge_count=cfg.max_edge_count,
@@ -106,6 +110,12 @@ def make_model(cfg: ModelConfig) -> nn.Module:
         wo_peripheral_edge=cfg.wo_peripheral_edge,
         wo_peripheral_configuration=cfg.wo_peripheral_configuration,
         drop_prob=cfg.drop_prob)
+    if cfg.model_name == "KPGINPlus":
+        backbone = GNNPlus(**common)
+    elif cfg.model_name == "KPGINPrime":
+        backbone = GNNPrime(num_l1_layer=cfg.num_l1_layer, **common)
+    else:
+        backbone = GNN(**common)
     if cfg.task == "graph_classification":
         return GraphClassification(backbone, cfg.pooling_method,
                                    cfg.hidden_size, cfg.output_size)

@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .inits import normal_
@@ -25,14 +26,17 @@ def small_table_lookup(table: torch.Tensor, ids: torch.Tensor,
 
     Up to ``max_rows`` rows the lookup is one_hot(ids) @ table: exact in
     the forward pass (one 1 per row, full-f32 matmul), and its backward is
-    one (V, N) @ (N, D) matmul.  The backward of a gather into a few rows
-    is a scatter that serialises on repeated ids (every padded node reads
-    row 0); on an H100 the flagship step spent most of its device time
-    there (PERF.md, Findings)."""
+    one (V, N) @ (N, D) matmul.  The backward of an indexing gather
+    (``table[ids]``) is a scatter that serialises on repeated ids (every
+    padded node reads row 0); on an H100 the flagship step spent most of
+    its device time there (PERF.md, Findings).  Wider tables go through
+    ``F.embedding``, whose backward sums the rows of each repeated id in
+    parallel (CSL's path encodings, where every node reads the same few
+    of 1,000 rows, PERF.md)."""
     V = table.shape[0]
     ids = ids.long()
     if V > max_rows:
-        return table[ids.clamp(0, V - 1)]
+        return F.embedding(ids.clamp(0, V - 1), table)
     oh = ids[..., None] == torch.arange(V, device=ids.device)
     return oh.to(table.dtype) @ table
 

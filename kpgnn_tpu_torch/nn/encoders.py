@@ -67,3 +67,15 @@ class EmbeddingEncoder(nn.Module):
         if x.dim() == 2 and x.shape[-1] == 1:
             x = x[:, 0]
         return self.init_proj(x)
+
+
+class LinearEncoder(nn.Module):
+    """Initial node encoder for float features: one torch-initialized
+    linear map of ``batch.x`` as f32."""
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__()
+        self.init_proj = TorchLinear(input_size, hidden_size)
+
+    def forward(self, batch) -> torch.Tensor:
+        return self.init_proj(batch.x.float())

@@ -35,6 +35,16 @@ def fan_in_bound(fan_in: int) -> float:
     return 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
 
 
+def kaiming_uniform_(t: torch.Tensor, generator: torch.Generator,
+                     a: float = 0.0):
+    """torch.nn.init.kaiming_uniform_ with torch's fan rule: fan_in =
+    shape[1] * prod(shape[2:]), so a (K, d_in, d_out) hop weight has
+    fan_in d_in * d_out, as in the JAX package."""
+    fan_in = t.shape[1] * math.prod(t.shape[2:])
+    bound = math.sqrt(2.0 / (1 + a * a)) * math.sqrt(3.0 / fan_in)
+    return uniform_(t, bound, generator)
+
+
 def init_parameters(model: nn.Module, seed: int) -> nn.Module:
     """(Re)initialize every parameter of ``model`` from ``seed``."""
     generator = torch.Generator().manual_seed(seed)

@@ -1,10 +1,11 @@
-"""Masked batch normalization (counterpart of kpgnn_tpu/nn/norms.py).
+"""Masked graph normalizations (counterpart of kpgnn_tpu/nn/norms.py).
 
-``nn.BatchNorm1d`` cannot exclude padded rows, so statistics here are
-taken under the node (or graph) mask.  Batch mean and biased variance
+``nn.BatchNorm1d`` cannot exclude padded rows, so every statistic here is
+taken under the node (or graph) mask, per graph through segment sums
+where the norm is per graph.  Batch norm: batch mean and biased variance
 normalize; the running estimate uses the unbiased variance over the
-masked count, momentum 0.1 (torch defaults).  The other norms of the JAX
-package (Layer, Instance, GraphSize, Pair) are not ported yet.
+masked count, momentum 0.1 (torch defaults).  Layer (PyG graph mode),
+Instance, GraphSize and Pair follow the JAX package's definitions.
 """
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from ..ops.segment import segment_sum
 
 
 class MaskedBatchNorm(nn.Module):
@@ -57,3 +60,90 @@ class MaskedBatchNorm(nn.Module):
         y = (x - mean) * torch.rsqrt(var + self.eps)
         y = y * self.weight + self.bias
         return y.to(in_dtype)
+
+
+def _node_mask(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """(N, 1) float mask of real rows."""
+    if mask is None:
+        return torch.ones(x.shape[0], 1, dtype=x.dtype, device=x.device)
+    return mask.to(x.dtype)[:, None]
+
+
+class MaskedGraphLayerNorm(nn.Module):
+    """PyG LayerNorm(mode="graph"): per graph, normalize over all of its
+    nodes and channels jointly, then an elementwise affine."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def init_params(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor, graph_ids: torch.Tensor,
+                num_graphs: int,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        in_dtype = x.dtype
+        x = x.float()
+        m = _node_mask(x, mask)
+        cnt = torch.clamp(segment_sum(m[:, 0] * float(x.shape[-1]),
+                                      graph_ids, num_graphs), min=1.0)
+        mean = (segment_sum((x * m).sum(-1), graph_ids, num_graphs)
+                / cnt)[graph_ids][:, None]
+        xc = (x - mean) * m
+        var = (segment_sum((xc ** 2).sum(-1), graph_ids, num_graphs)
+               / cnt)[graph_ids][:, None]
+        y = xc * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return y.to(in_dtype)
+
+
+class MaskedInstanceNorm(nn.Module):
+    """PyG InstanceNorm: per graph and channel, without an affine."""
+
+    def __init__(self, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor, graph_ids: torch.Tensor,
+                num_graphs: int,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        in_dtype = x.dtype
+        x = x.float()
+        m = _node_mask(x, mask)
+        cnt = torch.clamp(segment_sum(m, graph_ids, num_graphs), min=1.0)
+        mean = segment_sum(x * m, graph_ids, num_graphs) / cnt
+        xc = (x - mean[graph_ids]) * m
+        var = segment_sum(xc ** 2, graph_ids, num_graphs) / cnt
+        return (xc * torch.rsqrt(var[graph_ids] + self.eps)).to(in_dtype)
+
+
+class GraphSizeNorm(nn.Module):
+    """x_i / sqrt(|G(i)|), |G| counted over real nodes."""
+
+    def forward(self, x: torch.Tensor, graph_ids: torch.Tensor,
+                num_graphs: int,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cnt = segment_sum(_node_mask(x, mask)[:, 0], graph_ids, num_graphs)
+        return x * torch.rsqrt(torch.clamp(cnt, min=1.0))[graph_ids][:, None]
+
+
+class PairNorm(nn.Module):
+    """PairNorm (scale mode PN): center over the batch's real rows, then
+    rescale rows to the average row norm."""
+
+    def __init__(self, scale: float = 1.0, eps: float = 1e-5):
+        super().__init__()
+        self.scale = scale
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        m = _node_mask(x, mask)
+        cnt = torch.clamp(m.sum(), min=1.0)
+        xc = (x - (x * m).sum(0) / cnt) * m
+        return self.scale * xc * torch.rsqrt((xc ** 2).sum() / cnt
+                                             + self.eps)

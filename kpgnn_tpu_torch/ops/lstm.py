@@ -16,16 +16,14 @@ from torch import nn
 
 
 class BiLSTM(nn.Module):
-    """One-layer bidirectional LSTM: (B, T, F) -> (B, T, 2H); with
-    ``time_major=True`` (T, B, F) -> (T, B, 2H)."""
+    """One-layer bidirectional LSTM: (B, T, F) -> (B, T, 2H); a call
+    with ``time_major=True`` takes (T, B, F) -> (T, B, 2H)."""
 
-    def __init__(self, input_size: int, hidden_size: int,
-                 time_major: bool = False):
+    def __init__(self, input_size: int, hidden_size: int):
         super().__init__()
         self.hidden_size = hidden_size
-        self.time_major = time_major
         self.lstm = nn.LSTM(input_size, hidden_size, num_layers=1,
-                            bidirectional=True, batch_first=not time_major)
+                            bidirectional=True)
 
     def init_params(self, generator: torch.Generator) -> None:
         bound = 1.0 / math.sqrt(self.hidden_size)
@@ -34,6 +32,8 @@ class BiLSTM(nn.Module):
                 p.copy_(torch.empty_like(p).uniform_(
                     -bound, bound, generator=generator))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out, _ = self.lstm(x)
-        return out
+    def forward(self, x: torch.Tensor,
+                time_major: bool = False) -> torch.Tensor:
+        if time_major:
+            return self.lstm(x)[0]
+        return self.lstm(x.transpose(0, 1))[0].transpose(0, 1)

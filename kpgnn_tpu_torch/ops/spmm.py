@@ -380,8 +380,9 @@ def gather_segment_sum(x: torch.Tensor, indptr: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"gather_segment_sum kernel launch failed: "
                            f"cudaError {err}")
-    gather_segment_sum.variant_launches[
-        variant_name(x.dtype, vec, fused)] += 1
+    variant = variant_name(x.dtype, vec, fused)
+    gather_segment_sum.variant_launches[variant] += 1
+    gather_segment_sum.width_launches[variant, D] += 1
     return out
 
 
@@ -394,10 +395,12 @@ def variant_name(dtype: torch.dtype, vec: bool, fused: bool) -> str:
 
 def reset_launch_counts() -> None:
     gather_segment_sum.variant_launches.clear()
+    gather_segment_sum.width_launches.clear()
 
 
-# every kernel launch, by variant_name
+# every kernel launch, by variant_name and by (variant_name, row width D)
 gather_segment_sum.variant_launches = collections.Counter()
+gather_segment_sum.width_launches = collections.Counter()
 
 
 class _GatherSegment(torch.autograd.Function):

@@ -2,9 +2,12 @@
 kpgnn_tpu/scripts/common.py).
 
 The argparse surface is the JAX package's, flag for flag, plus
-``--device`` (default ``cuda``).  Options whose code paths are not ported
-yet raise ``NotImplementedError`` naming ROADMAP.md instead of being
-ignored: ``--backend`` other than ``pallas``, ``--dense``, ``--bf16``,
+``--device`` (default ``cuda``).  ``--backend`` takes ``coo`` (the
+flag's default, as in the JAX CLI: plain PyTorch ``index_add_``
+aggregation, as the JAX COO backend is plain XLA) or ``pallas`` (the
+hand-written CUDA gather/segment-sum).  Options whose code paths are not
+ported yet raise ``NotImplementedError`` naming ROADMAP.md instead of
+being ignored: ``--backend dense|banded``, ``--dense``, ``--bf16``,
 ``--parallel``, ``--resident on``, ``--load_path``, ``--save_checkpoints``,
 ``--profile_dir``.  The prep cache (``--cache_dir``, ``--reprocess``) and
 the prep worker pool (``--num_workers``) are not ported: prep runs
@@ -105,8 +108,10 @@ def base_parser(description: str, **defaults) -> argparse.ArgumentParser:
                    help="shorthand for --backend dense (not ported yet)")
     p.add_argument("--backend", type=str, default="coo",
                    choices=("coo", "dense", "pallas", "banded"),
-                   help="adjacency backend; only 'pallas', the fused-hop "
-                        "CUDA gather/segment-sum plan, is ported yet")
+                   help="adjacency backend: 'coo' (index_add_ segment "
+                        "sums) or 'pallas' (the fused-hop CUDA "
+                        "gather/segment-sum plan); 'dense' and 'banded' "
+                        "are not ported yet")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 activations (not ported yet)")
     p.add_argument("--matmul_precision", type=str,
@@ -184,8 +189,8 @@ def check_ported(args) -> None:
     """Raise for options whose code paths are not ported yet."""
     unported = []
     backend = "dense" if args.dense else args.backend
-    if backend != "pallas":
-        unported.append(f"--backend {backend} (only pallas is ported)")
+    if backend not in ("coo", "pallas"):
+        unported.append(f"--backend {backend} (coo and pallas are ported)")
     if args.bf16:
         unported.append("--bf16")
     if args.parallel:
@@ -231,10 +236,13 @@ def prepare(raw_graphs, args):
 
 
 def loader_kwargs(args, mcfg: ModelConfig) -> dict:
-    """Loader kwargs of the kernel-plan backend: the model's vocab
-    sizes."""
+    """Loader kwargs of the chosen backend; the kernel plan needs the
+    model's vocab sizes and refuses ``--aggr max``, as in the JAX CLI."""
+    if args.backend == "coo":
+        return {"mode": "coo"}
     if args.aggr == "max":
         raise SystemExit("--aggr max is not available on the pallas "
-                         "backend (the kernel is sum-only)")
+                         "backend (the kernel is sum-only) — use "
+                         "--backend coo")
     return {"mode": "pallas", "v1": mcfg.num_hop1_edge + 2,
             "vk": mcfg.max_pe_num + 2}

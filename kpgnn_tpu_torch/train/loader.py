@@ -1,5 +1,6 @@
 """Batch iterator: Graph list -> stream of padded GraphBatches
-(counterpart of kpgnn_tpu/train/loader.py, "pallas" mode only).
+(counterpart of kpgnn_tpu/train/loader.py, modes "coo" and "pallas"; the
+dense and banded modes are not ported yet).
 
 Pad sizes are chosen once per loader (worst case over the dataset), as
 in the JAX loader, so one list of graphs gives the same node layout in
@@ -16,7 +17,7 @@ from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
-from ..graph.batch import BucketSpec, GraphBatch, collate_pallas
+from ..graph.batch import BucketSpec, GraphBatch, collate, collate_pallas
 from ..graph.data import Graph
 
 
@@ -62,8 +63,9 @@ def background_iter(factory, maxsize: int = 2):
 
 
 class GraphLoader:
-    """mode="pallas": batches carry the fused-hop kernel plan; v1/vk must
-    match the model's num_hop1_edge + 2 / max_pe_num + 2."""
+    """mode="coo": batches carry the receiver-sorted edge list;
+    mode="pallas": the fused-hop kernel plan, whose v1/vk must match the
+    model's num_hop1_edge + 2 / max_pe_num + 2."""
 
     def __init__(
         self,
@@ -79,11 +81,11 @@ class GraphLoader:
         v1: Optional[int] = None,
         vk: Optional[int] = None,
     ):
-        if mode != "pallas":
+        if mode not in ("coo", "pallas"):
             raise NotImplementedError(
                 f"loader mode {mode!r} is not ported yet (ROADMAP.md, "
-                "Queue 1); use mode='pallas'")
-        if v1 is None or vk is None:
+                "Queue 1); use mode='coo' or 'pallas'")
+        if mode == "pallas" and (v1 is None or vk is None):
             raise ValueError("pallas mode needs v1/vk vocab sizes")
         self.graphs = list(graphs)
         self.batch_size = batch_size
@@ -111,6 +113,10 @@ class GraphLoader:
         return math.ceil(len(self.graphs) / self.batch_size)
 
     def _collate(self, batch_graphs) -> GraphBatch:
+        if self.mode == "coo":
+            return collate(batch_graphs, n_pad=self.n_pad, e_pad=self.e_pad,
+                           g_pad=self.g_pad,
+                           y_is_node_level=self.y_is_node_level)
         return collate_pallas(
             batch_graphs, v1=self.v1, vk=self.vk, n_pad=self.n_pad,
             e_pad=self.e_pad, g_pad=self.g_pad,

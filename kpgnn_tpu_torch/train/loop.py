@@ -69,10 +69,17 @@ def train_step(model, opt, batch: GraphBatch, loss: str = "l1",
 
 @torch.no_grad()
 def eval_step(model, batch: GraphBatch, loss: str = "l1"
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(loss sum, count) of one batch, for exact epoch aggregation."""
+              ) -> Dict[str, torch.Tensor]:
+    """Sums of one batch as device tensors, for exact epoch aggregation:
+    ``loss_sum`` and ``count``, and for cross entropy ``correct`` (real
+    graphs whose argmax is the label)."""
     pred = model(batch, train=False)
-    return _masked_loss(pred, batch.y, batch.graph_mask, loss)
+    lsum, cnt = _masked_loss(pred, batch.y, batch.graph_mask, loss)
+    out = {"loss_sum": lsum, "count": cnt}
+    if loss == "cross_entropy":
+        out["correct"] = ((pred.argmax(-1) == batch.y.long())
+                          & batch.graph_mask).sum()
+    return out
 
 
 def train_epoch(model, opt, batches, loss: str = "l1",
@@ -94,21 +101,32 @@ def train_epoch(model, opt, batches, loss: str = "l1",
 
 
 def evaluate(model, batches, loss: str = "l1") -> Dict[str, float]:
-    """Mean loss over the real graphs of all batches."""
-    sums, counts = zip(*(eval_step(model, b, loss) for b in batches))
-    total = float(torch.stack(sums).double().sum())
-    count = max(float(torch.stack(counts).double().sum()), 1.0)
-    return {"loss": total / count, "count": count}
+    """Mean loss (and, for cross entropy, accuracy) over the real graphs
+    of all batches, with one host sync."""
+    steps = [eval_step(model, b, loss) for b in batches]
+    sums = {k: float(torch.stack([s[k] for s in steps]).double().sum())
+            for k in steps[0]}
+    count = max(sums["count"], 1.0)
+    out = {"loss": sums["loss_sum"] / count, "count": count}
+    if "correct" in sums:
+        out["accuracy"] = sums["correct"] / count
+    return out
 
 
 @dataclasses.dataclass
 class Trainer:
-    """Epoch loop with plateau LR on the validation loss, best-val gating
-    of the test loss and optional min-lr stopping, on one device."""
+    """Epoch loop with plateau LR on the validation metric, best-val
+    gating of the test metrics and optional min-lr stopping, on one
+    device.  ``metric_mode="min"`` tracks the validation loss, "max" its
+    accuracy; ``use_scheduler=False`` keeps the LR constant, as the
+    expressiveness scripts do.  The plateau schedule is ported in "min"
+    mode only, so "max" requires ``use_scheduler=False``."""
 
     model: torch.nn.Module
     cfg: TrainConfig
     loss: str = "l1"
+    metric_mode: str = "min"
+    use_scheduler: bool = True
     logger: Optional[object] = None
     device: str = "cuda"
 
@@ -127,6 +145,10 @@ class Trainer:
             raise NotImplementedError(
                 "checkpoints and profiling are not ported yet "
                 "(ROADMAP.md, Queue 1)")
+        if self.metric_mode == "max" and self.use_scheduler:
+            raise NotImplementedError(
+                "the plateau LR schedule runs in 'min' mode only; pass "
+                "use_scheduler=False with metric_mode='max'")
         device = resolve_device(self.device)
         seed = self.cfg.seed if seed is None else seed
         model = init_parameters(self.model, seed).to(device)
@@ -146,7 +168,9 @@ class Trainer:
         sched = ReduceLROnPlateau(factor=self.cfg.factor,
                                   patience=self.cfg.patience,
                                   min_lr=self.cfg.min_lr)
-        best_val = math.inf
+        maximize = self.metric_mode == "max"
+        key = "accuracy" if maximize else "loss"
+        best_val = -math.inf if maximize else math.inf
         best_test: Dict[str, float] = {}
         best_epoch = -1
         history = []
@@ -161,17 +185,22 @@ class Trainer:
                        "lr": get_lr(opt), "seconds": time.time() - t0,
                        "step_losses": step_losses}
                 if val_loader is not None:
-                    metric = run_eval(val_loader)["loss"]
-                    row["val_loss"] = metric
-                    lr = get_lr(opt)
-                    new_lr = sched.step(metric, lr)
-                    if new_lr != lr:
-                        set_lr(opt, new_lr)
-                    if metric < best_val:
+                    val = run_eval(val_loader)
+                    row.update({f"val_{k}": v for k, v in val.items()
+                                if k != "count"})
+                    metric = val[key]
+                    if self.use_scheduler:
+                        lr = get_lr(opt)
+                        new_lr = sched.step(metric, lr)
+                        if new_lr != lr:
+                            set_lr(opt, new_lr)
+                    if metric > best_val if maximize else metric < best_val:
                         best_val, best_epoch = metric, epoch
                         if test_loader is not None:
                             best_test = run_eval(test_loader)
-                            row["test_loss"] = best_test["loss"]
+                            row.update({f"test_{k}": v
+                                        for k, v in best_test.items()
+                                        if k != "count"})
                 history.append(row)
                 self.log(" ".join(
                     f"{k}={v:.5f}" if isinstance(v, float) else f"{k}={v}"

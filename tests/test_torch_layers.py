@@ -124,8 +124,9 @@ def test_bilstm(time_major):
                    ).astype(np.float32)
     jm = jlstm.BiLSTM(4, time_major=time_major)
     v = jm.init(jax.random.PRNGKey(4), jnp.asarray(x))
-    tm = carry(BiLSTM(10, 4, time_major=time_major), v)
-    close(tm(torch.from_numpy(x)), jm.apply(v, jnp.asarray(x)))
+    tm = carry(BiLSTM(10, 4), v)
+    close(tm(torch.from_numpy(x), time_major=time_major),
+          jm.apply(v, jnp.asarray(x)))
 
 
 @pytest.mark.parametrize("kind", ["attention", "geometric"])
@@ -137,8 +138,9 @@ def test_combines_hop_major(kind):
     if kind == "geometric":     # non-zero alphas so the weights differ
         v = {"params": {"alphas": jnp.asarray(
             rng.normal(size=12).astype(np.float32))}}
-    tm = carry(combine.make_combine(kind, 3, 12, hop_major=True), v)
-    close(tm(torch.from_numpy(x)), jm.apply(v, jnp.asarray(x)))
+    tm = carry(combine.make_combine(kind, 3, 12), v)
+    close(tm(torch.from_numpy(x), hop_major=True),
+          jm.apply(v, jnp.asarray(x)))
 
 
 @pytest.mark.parametrize("k,combine_kind", [(1, "attention"),

@@ -240,7 +240,21 @@ def test_train_zinc_main_on_cpu(tmp_path):
     assert np.isfinite(rows[0]["step_losses"]).all()
 
 
-@pytest.mark.parametrize("flag", [["--backend", "coo"], ["--dense"],
+def test_train_zinc_main_on_the_coo_backend(tmp_path):
+    from kpgnn_tpu_torch.scripts import train_zinc
+
+    write_zinc_fixture(str(tmp_path), (24, 8, 8))
+    rows = []
+    mae = train_zinc.main(
+        ["--dataset_dir", str(tmp_path), "--save_dir", str(tmp_path / "s"),
+         "--backend", "coo", "--device", "cpu"] + TINY_ARGS,
+        epoch_callback=lambda e, m, row: rows.append(row))
+    assert math.isfinite(mae)
+    assert len(rows) == 1 and len(rows[0]["step_losses"]) == 3
+    assert np.isfinite(rows[0]["step_losses"]).all()
+
+
+@pytest.mark.parametrize("flag", [["--backend", "banded"], ["--dense"],
                                   ["--bf16"], ["--parallel"]])
 def test_train_zinc_refuses_unported_options(tmp_path, flag):
     from kpgnn_tpu_torch.scripts import train_zinc

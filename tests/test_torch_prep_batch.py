@@ -170,4 +170,22 @@ def test_loader_shuffle_order_matches():
 def test_loader_refuses_unported_modes():
     ts = tkhop.extract_graphs(raw_molecules(2), tkhop.KHopConfig(K=2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GraphLoader(ts, 2, mode="coo")
+        GraphLoader(ts, 2, mode="dense", v1=4, vk=4)
+
+
+def test_coo_loader_layout_and_edges_match():
+    js, ts = both_prep(raw_molecules(20, seed=8), K=3, max_edge_attr_num=9)
+    jl = JGraphLoader(js, 8, mode="coo")
+    tl = GraphLoader(ts, 8, mode="coo")
+    assert (tl.n_pad, tl.e_pad, tl.g_pad) == (jl.n_pad, jl.e_pad, jl.g_pad)
+    for jb, tb in zip(jl, tl):
+        for f in NODE_FIELDS:
+            a, b = getattr(jb, f), getattr(tb, f)
+            assert (a is None) == (b is None), f
+            if a is not None:
+                np.testing.assert_array_equal(np.asarray(a), b.numpy(),
+                                              err_msg=f)
+        for f in ("senders", "receivers", "edge_attr", "edge_mask"):
+            np.testing.assert_array_equal(np.asarray(getattr(jb.adj, f)),
+                                          getattr(tb.adj, f).numpy(),
+                                          err_msg=f)
