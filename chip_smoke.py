@@ -40,7 +40,24 @@ Phases, each of which fails the run loudly:
      same step on the CPU, and each family's launches per variant (KPGCN:
      the plain gather after its sender pre-scale, L forward + L backward;
      the others L fused forward + L gather backward);
-  6. time   — on the flagship k=8 plan (CUDA events, after warm-up,
+  6. qm9    — write a qm9_v3.pt-format fixture (tools/make_qm9_fixture.py,
+     640 molecules, seed 7) and run ``kpgnn_tpu_torch.scripts.train_qm9
+     .main`` at the canonical width (KPGINPlus K=8 L=8 H=128, batch 128,
+     attention combine and pooling, --virtual_node --use_rd, task 0,
+     --backend pallas, 2 epochs): finite losses, exactly 2*L launches per
+     train step and L per eval step, and a first-step loss equal to the
+     CPU's, to --backend coo's on the card and to --backend dense's on the
+     card; then one Adam step of the same config against the CPU under
+     the gradient gate (below).  The kernel is checked at its QM9 shapes
+     (D=128 over the k=8 plan; D=8 over the k=16 plan and D=128 over its
+     hop-1 slice, the sweep's KPGINPrime K=16 L=16);
+  7. dense  — ``train_qm9.main --dense`` on the card for the same 2 epochs:
+     finite losses, no kernel launch, and the pallas run's first-step
+     loss; then one Adam step of the sweep's second config (KPGINPrime
+     K=16 L=16 --residual --use_rd, the one main path whose K-hop layer
+     launches at the kernel's 16 hops) against the CPU under the
+     gradient gate, with its launches per width;
+  8. time   — on the flagship k=8 plan (CUDA events, after warm-up,
      rotating distinct inputs), each beside the least time the card could
      take: every kernel variant on the CSR where the main path launches it
      (the gather over the backward CSR, the fused form over the forward
@@ -51,14 +68,17 @@ Phases, each of which fails the run loudly:
      time by kernel from torch.profiler.  Then the same kernel times at
      the CSL shapes, KPGCN's whole aggregation (sender pre-scale, gather,
      weighted histograms, K GEMMs, receiver scale) at D=12, the host's
-     collate time per CSL batch, and the CSL train step with its profile.
+     collate time per CSL batch, and the CSL train step with its profile;
+     the kernel times at the QM9 shapes, and the QM9 train step on pallas
+     and on dense, each with its profile.
 The last lines are the card's name and power limit, a ``kernels`` JSON
 line, and ``{"ok": true, "device": {...}}``.  The ``kernels`` line has one
 entry per kernel variant, timed on the flagship plan, with the launches
-of the flagship, CSL and families runs at every width; then one entry per
-variant and main-path width (the flagship's D=104, CSL's D=12 over the
-k=4 plan, GINE's D=48 over its hop-1 slice), each with its own launches,
-error, times and bound.
+of every run at every width; then one entry per variant and main-path
+shape (the flagship's D=104, CSL's D=12 over the k=4 plan, GINE's D=48
+over its hop-1 slice, QM9's D=128 over the k=8 plan, KPGINPrime-QM9's D=8
+over the k=16 plan and D=128 over its hop-1 slice), each with the
+launches of the run that takes that shape, its error, times and bound.
 
 Tolerances: f32 gather vs plain version atol 1e-5, except the hub row,
 whose 10k-term sums may differ in summation order by up to 1e-6 of the
@@ -72,15 +92,25 @@ version on the same bf16 values, both summed in f32, rtol 1e-3; first
 train-step loss GPU vs CPU, and kernel vs COO backend on the card, rtol
 1e-4 (on the card the COO backend's index_add_ sums with atomics, in an
 order that varies from run to run, so neither side is bitwise fixed);
-family-step gradients GPU vs CPU per parameter: rtol 1e-4 and an atol
-of 1e-4 of that parameter's largest gradient, plus 8 times its f32
-rounding, measured as how far its CPU gradient moves when every weight
-moves by an ulp (w * (1 +- 2**-23)), plus 1e-7 of the model's largest
-gradient.  A gradient that is 0 in exact arithmetic (a bias ahead of a
-batch norm) is all rounding, and a sum that cancels (a scalar gate)
-carries more than 1e-4 of itself; the measured term admits both without
-widening any other parameter's bound.
+gradient gate (the family steps, the QM9 step, KPGINPrime K=16 L=16),
+one step on the card against the same step on the CPU: the loss rtol
+1e-4; every parameter gradient, against the CPU step that takes the
+card's ReLU branches, rtol 1e-4 and an atol of 1e-4 of that parameter's
+largest gradient, plus 8 times its f32 rounding, measured as how far its
+CPU gradient moves when every weight moves by an ulp (w * (1 +- 2**-23)),
+plus 1e-7 of the model's largest gradient.  A gradient that is 0 in
+exact arithmetic (a bias ahead of a batch norm) is all rounding, and a
+sum that cancels (a scalar gate) carries more than 1e-4 of itself; the
+measured term admits both without widening any other parameter's bound.
+ReLU is the gated models' one branch point.  An input the card computes
+within its rounding of 0 can land on the other side (in the two QM9
+steps 10 or 11 of 9-17M inputs, within ~6e-5 of 0; PERF.md §6), and
+every gradient below it then differs by far more than rounding; so the
+card's ReLU inputs are recorded and the CPU steps (the ulp-moved one
+too) replay their branches (``relu_branches``), and every input whose
+branch differs must lie within 1e-4 of its call's largest |input| of 0.
 """
+import contextlib
 import importlib.util
 import json
 import math
@@ -98,6 +128,9 @@ K, L, H, BATCH = 8, 8, 104, 64
 N_TRAIN, N_VAL, N_TEST = 1024, 128, 128
 SEED = 234
 CSL_K, CSL_L, CSL_H, CSL_BATCH, CSL_EPOCHS = 4, 4, 48, 64, 2
+QM9_K, QM9_L, QM9_H, QM9_BATCH, QM9_EPOCHS = 8, 8, 128, 128, 2
+QM9_MOLECULES, QM9_FIXTURE_SEED = 640, 7
+PRIME_K = PRIME_L = 16          # the QM9 sweep's KPGINPrime config
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM data sheet, f32 outside the MMA
 KERNEL = dict(route="cuda",
@@ -143,6 +176,36 @@ def write_fixture(root):
             pickle.dump([mod.make_mol(rng) for _ in range(n)], f)
         with open(os.path.join(raw, f"{split}.index"), "w") as f:
             f.write(",".join(str(i) for i in range(n)) + ",")
+
+
+def run_tool(name, *argv):
+    """Runs tools/<name>.py's main() in this process with ``argv`` as its
+    command line."""
+    path = os.path.join(ROOT, "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    saved = sys.argv
+    sys.argv = [path, *map(str, argv)]
+    try:
+        mod.main()
+    finally:
+        sys.argv = saved
+
+
+def qm9_argv(dataset_dir, save_dir, device, backend, extra=()):
+    """train_qm9 at the canonical width; ``extra`` picks the sweep's
+    config (its first: --virtual_node --use_rd)."""
+    return ["--dataset_dir", dataset_dir, "--save_dir", save_dir,
+            "--device", device, "--backend", backend, "--K", str(QM9_K),
+            "--num_layer", str(QM9_L), "--hidden_size", str(QM9_H),
+            "--batch_size", str(QM9_BATCH), "--num_epochs", str(QM9_EPOCHS),
+            "--task", "0", "--seed", str(SEED), *extra]
+
+
+QM9_VN_RD = ("--virtual_node", "--use_rd")
+QM9_PRIME = ("--model_name", "KPGINPrime", "--K", str(PRIME_K),
+             "--num_layer", str(PRIME_L), "--residual", "--use_rd")
 
 
 def train_argv(dataset_dir, save_dir, device):
@@ -215,6 +278,44 @@ def launched(spmm, fn):
     after = Counter(spmm.gather_segment_sum.variant_launches)
     after.subtract(before)
     return out, {k: v for k, v in after.items() if v}
+
+
+@contextlib.contextmanager
+def relu_branches(torch, inputs, replay):
+    """Within the block, every ``F.relu`` call of the model records its
+    input on the host into ``inputs`` (``replay`` False), or (``replay``
+    True) takes the branch that the input of the same call in ``inputs``
+    took: relu(x) becomes where(inputs[i] > 0, x, 0), gradient included.
+    ReLU is the one branch point of the gated models.  Yields, per call
+    replayed, (inputs whose own sign differs from the recorded one,
+    largest |x| or recorded |x| among them, largest |x| of the call)."""
+    F = torch.nn.functional
+    relu = F.relu
+    flips = []
+
+    def recording(x, inplace=False):
+        inputs.append(x.detach().float().cpu())
+        return relu(x, inplace)
+
+    def replaying(x, inplace=False):
+        i = len(flips)
+        check(i < len(inputs) and inputs[i].shape == x.shape,
+              f"ReLU call {i} {tuple(x.shape)} is not the recorded step's")
+        keep = (inputs[i] > 0).to(x.device)
+        xd = x.detach().float()
+        other = keep != (xd > 0)
+        mag = torch.maximum(xd.abs(), inputs[i].to(x.device).abs())[other]
+        flips.append((int(other.sum()),
+                      float(mag.max()) if mag.numel() else 0.0,
+                      float(xd.abs().max())))
+        return torch.where(keep, x, torch.zeros_like(x))
+    F.relu = replaying if replay else recording
+    try:
+        yield flips
+    finally:
+        F.relu = relu
+    check(not replay or len(flips) == len(inputs),
+          f"{len(flips)} ReLU calls replayed, {len(inputs)} recorded")
 
 
 def time_ms(torch, fn, inputs, iters=200, warmup=20):
@@ -303,7 +404,7 @@ def main():
     from kpgnn_tpu_torch.models.factory import make_model
     from kpgnn_tpu_torch.nn.inits import init_parameters
     from kpgnn_tpu_torch.ops import cuda_lib, spmm
-    from kpgnn_tpu_torch.scripts import common, train_csl, train_zinc
+    from kpgnn_tpu_torch.scripts import common, train_csl, train_qm9, train_zinc
     from kpgnn_tpu_torch.train.loader import GraphLoader
     from kpgnn_tpu_torch.train.loop import _masked_loss, train_step
     from kpgnn_tpu_torch.train.state import make_optimizer
@@ -313,11 +414,21 @@ def main():
     card = card_line()
     kind = torch.cuda.get_device_name(0)
 
+    marks = [("start", time.perf_counter())]
+
+    def mark(name):
+        """Ends the phase ``name``: its seconds go on the [phases] line."""
+        marks.append((name, time.perf_counter()))
+
     # ---- 1. build ----
     secs = cuda_lib.build_all([spmm.KERNEL_SOURCE])
     hashes = {s: cuda_lib.source_hash(s) for s in secs}
     log(f"[build] {kind} ({card}); source hash {json.dumps(hashes)}; nvcc "
         f"seconds: {json.dumps(secs)}")
+    # the rtol 1e-4 gates against the CPU hold only in full f32
+    check(not (torch.backends.cuda.matmul.allow_tf32
+               or torch.backends.cudnn.allow_tf32),
+          "TF32 is on for cuBLAS or cuDNN after common.set_full_f32()")
 
     work = tempfile.mkdtemp(prefix="kpgnn_smoke_")
     try:
@@ -378,6 +489,48 @@ def main():
         coo_tl = GraphLoader(ctrain, CSL_BATCH, shuffle=True, seed=SEED,
                              mode="coo")
 
+        # the QM9 slice's data: the trainer's train split in each backend's
+        # loader (same seed), so the QM9 plan has the main path's shapes;
+        # and the sweep's KPGINPrime K=16 config on the same split
+        run_tool("make_qm9_fixture", "--out", work, "--n", QM9_MOLECULES,
+                 "--seed", QM9_FIXTURE_SEED)
+
+        def qm9_data(extra, backend):
+            a = train_qm9.parser().parse_args(qm9_argv(
+                work, os.path.join(work, "qm9"), "cuda", backend, extra))
+            (train, _, _), _ = train_qm9.task_splits(
+                common.prepare(train_qm9.load(a), a), a)
+            cfg = common.model_config(a, input_encoder=("qm9", 0),
+                                      task="graph_regression", output_size=1)
+            return a, train, cfg
+        qargs, qtrain, qmcfg = qm9_data(QM9_VN_RD, "pallas")
+        qlk = common.loader_kwargs(qargs, qmcfg)
+        qloaders = {mode: GraphLoader(qtrain, QM9_BATCH, shuffle=True,
+                                      seed=SEED, **dict(qlk, mode=mode))
+                    for mode in ("pallas", "coo", "dense")}
+        qfb = qloaders["pallas"].example()
+        qplan = qfb.adj.to(dev)
+        qvk = qplan.countsk_hm.shape[2]
+        pargs, ptrain, pmcfg = qm9_data(QM9_PRIME, "pallas")
+        ptl = GraphLoader(ptrain, QM9_BATCH,
+                          **common.loader_kwargs(pargs, pmcfg))
+        pfb = ptl.example()
+        pplan = pfb.adj.to(dev)
+        pvk = pplan.countsk_hm.shape[2]
+        for label, b, p in (("qm9", qfb, qplan),
+                            (f"qm9 KPGINPrime k={PRIME_K}", pfb, pplan)):
+            d = p.fwd.indptr[1:] - p.fwd.indptr[:-1]
+            log(f"[plan] {label} batch: {int(b.node_mask.sum())} nodes, "
+                f"n_pad {b.n_pad}, K*n_pad = {p.fwd.n_rows} rows, "
+                f"{int((d > 0).sum())} of them with an edge, at most "
+                f"{int(d.max())} edges a row, {p.fwd.senders.shape[0]} live "
+                f"hop edges; rows up to the last live one per hop "
+                f"{p.fwd.hop_live}")
+        qdb = qloaders["dense"].example()
+        log(f"[plan] qm9 dense batch: n_slot {qloaders['dense'].n_slot}, "
+            f"hop_attr {tuple(qdb.adj.hop_attr.shape)}; split "
+            f"{len(qtrain)} train graphs")
+
         def collate_ms(loader):
             ts = []
             for _ in range(5):
@@ -389,19 +542,20 @@ def main():
             f"pallas plan {collate_ms(ctl):.1f} ms, coo "
             f"{collate_ms(coo_tl):.1f} ms")
 
+        mark("build and data")
         # ---- 2. kernels against their plain versions ----
         gen = torch.Generator(device=dev).manual_seed(0)
         errs = Counter()            # variant -> max |err| over its checks
-        errs_w = Counter()          # (variant, D) -> the same at width D
+        errs_w = Counter()          # (variant, shape) -> the same there
         f32_tol = dict(rtol=0.0, atol=1e-5)
 
-        def note(variants, err, D):
+        def note(variants, err, shape):
             for v in variants:
                 errs[v] = max(errs[v], err)
-                errs_w[v, D] = max(errs_w[v, D], err)
+                errs_w[v, shape] = max(errs_w[v, shape], err)
 
         def compare(name, fwd, bwd, D, dtype=torch.float32, hub=False,
-                    mis=False):
+                    mis=False, shape=None):
             x = torch.randn(fwd.n_cols, D, device=dev, generator=gen
                             ).to(dtype)
             w = torch.randn(fwd.n_rows, D, device=dev, generator=gen)
@@ -450,8 +604,8 @@ def main():
             torch.testing.assert_close(grad_k, xr.grad, **tol_b,
                                        msg=lambda m: f"{name} bwd: {m}")
             if not hub:
-                note(v_f, ef, D)
-                note(set(v_b) | set(v_g), eb, D)
+                note(v_f, ef, D if shape is None else shape)
+                note(set(v_b) | set(v_g), eb, D if shape is None else shape)
             log(f"[check] {name}: rows {fwd.n_rows} cols {fwd.n_cols} "
                 f"edges {fwd.senders.shape[0]} D {D} {str(dtype)[6:]}: "
                 f"max |err| fwd {ef:.3e} ({expect_f}) bwd {eb:.3e} "
@@ -499,7 +653,7 @@ def main():
         V1, VK = plan.counts1.shape[1], plan.countsk_hm.shape[2]
 
         def compare_fused(name, sub, D, dtype=torch.float32, mis=False,
-                          VK=VK):
+                          VK=VK, shape=None):
             """The fused forward (gather + edge-embedding term) and its
             autograd grads of x and both tables against the plain version's
             autograd; VK is the hop-k table's rows (the full plan's)."""
@@ -564,7 +718,8 @@ def main():
                     msg=lambda m: f"{name} {what}: {m}")
                 msg.append(f"{what} {err:.3e} (tol {tol:.1e})")
                 note(v_f if what == "fwd" else
-                     (v_b if what == "dx" else ()), err, D)
+                     (v_b if what == "dx" else ()), err,
+                     D if shape is None else shape)
             log(f"[check] fused {name}: D {D} {str(dtype)[6:]}: max |err| "
                 + ", ".join(msg) + f"; {expect_f} + {expect_b}")
 
@@ -583,6 +738,21 @@ def main():
         c1 = cplan.slice_hops(1)
         compare("csl k=1 (GINE)", c1.fwd, c1.bwd, CSL_H)
         compare_fused("csl k=1 (GINE)", c1, CSL_H, VK=cvk)
+        # the QM9 shapes: KPGINPlus at D = H = 128 over the k=8 plan (its
+        # hop prefixes as the flagship's); KPGINPrime K=16 at D = H/K = 8
+        # over the k=16 plan (the kernel's 16 hops) and its GINE layers at
+        # D = H over the hop-1 slice
+        compare(f"qm9 k={QM9_K}", qplan.fwd, qplan.bwd, QM9_H, shape="qm9")
+        compare_fused(f"qm9 k={QM9_K}", qplan, QM9_H, VK=qvk, shape="qm9")
+        compare(f"qm9 KPGINPrime k={PRIME_K}", pplan.fwd, pplan.bwd,
+                QM9_H // PRIME_K, shape="prime")
+        compare_fused(f"qm9 KPGINPrime k={PRIME_K}", pplan, QM9_H // PRIME_K,
+                      VK=pvk, shape="prime")
+        p1 = pplan.slice_hops(1)
+        compare("qm9 KPGINPrime k=1 (GINE)", p1.fwd, p1.bwd, QM9_H,
+                shape="prime gine")
+        compare_fused("qm9 KPGINPrime k=1 (GINE)", p1, QM9_H, VK=pvk,
+                      shape="prime gine")
 
         # determinism: three launches of every variant on one input, each
         # on the CSR where the main path launches it
@@ -611,6 +781,7 @@ def main():
         log(f"[check] determinism: 3 launches bit-identical for each of "
             f"{len(variants)} variants")
 
+        mark("check")
         # ---- 3. the main path: train_zinc at full width ----
         rows = []
         spmm.reset_launch_counts()
@@ -657,27 +828,29 @@ def main():
             check(not v, f"a first step on {device} launched {v}")
             return float(lsum / cnt)
 
-        def same_first_step(label, got, cfg, pallas_loader, coo_loader,
-                            loss):
+        def same_first_step(label, got, cfg, kernel_loader, others, loss):
             """The path's first-step loss against the same step on the CPU
-            (plain version) and on --backend coo on the card."""
-            cpu_loss = first_step_loss(cfg, first_batch(pallas_loader),
-                                       "cpu", loss)
-            coo_loss = first_step_loss(cfg, first_batch(coo_loader), dev,
-                                       loss)
-            rel_cpu = abs(got - cpu_loss) / abs(cpu_loss)
-            rel_coo = abs(got - coo_loss) / abs(coo_loss)
-            log(f"[{label}] first-step loss GPU {got:.7f}, CPU "
-                f"{cpu_loss:.7f} (rel diff {rel_cpu:.2e}), --backend coo on "
-                f"the card {coo_loss:.7f} (rel diff {rel_coo:.2e})")
-            check(rel_cpu <= 1e-4 and rel_coo <= 1e-4,
-                  f"{label}: first-step loss differs by {rel_cpu:.2e} (CPU), "
-                  f"{rel_coo:.2e} (coo) > 1e-4")
+            (plain version) and on the card on each backend of ``others``
+            ({backend: its loader})."""
+            refs = {"CPU": first_step_loss(cfg, first_batch(kernel_loader),
+                                           "cpu", loss)}
+            for name, loader in others.items():
+                refs[f"--backend {name} on the card"] = first_step_loss(
+                    cfg, first_batch(loader), dev, loss)
+            rel = {k: abs(got - v) / abs(v) for k, v in refs.items()}
+            log(f"[{label}] first-step loss GPU {got:.7f}, " + ", ".join(
+                f"{k} {v:.7f} (rel diff {rel[k]:.2e})"
+                for k, v in refs.items()))
+            check(max(rel.values()) <= 1e-4,
+                  f"{label}: first-step loss differs by "
+                  + ", ".join(f"{v:.2e} ({k})" for k, v in rel.items())
+                  + " > 1e-4")
 
         same_first_step("train", losses[0], mcfg, tl,
-                        GraphLoader(tl.graphs, BATCH, shuffle=True,
-                                    seed=SEED, mode="coo"), "l1")
+                        {"coo": GraphLoader(tl.graphs, BATCH, shuffle=True,
+                                            seed=SEED, mode="coo")}, "l1")
 
+        mark("train")
         # ---- 4. the CSL slice: train_csl at the reference width ----
         rows_c = []
         spmm.reset_launch_counts()
@@ -711,21 +884,22 @@ def main():
               f"csl kernel launches {csl_launches} != {expect_c} (per train "
               f"step L fused forward + L gather backward, per eval step L "
               f"fused forward)")
-        same_first_step("csl", float(closses[0]), cmcfg, ctl, coo_tl,
-                        "cross_entropy")
+        same_first_step("csl", float(closses[0]), cmcfg, ctl,
+                        {"coo": coo_tl}, "cross_entropy")
 
+        mark("csl")
         # ---- 5. the other families, one step at CSL width ----
         cb = cfb.to(dev)
-        fam_launches = Counter()
-        fam_w0 = Counter(spmm.gather_segment_sum.width_launches)
 
-        def step_grads(model, batch, lr, wd):
-            """(loss, {parameter: grad}, launches) of one AdamW step."""
+        def step_grads(model, batch, lr, wd, loss):
+            """(loss, {parameter: grad on the host}, launches) of one
+            optimizer step."""
             (lsum, cnt), v = launched(spmm, lambda: train_step(
                 model, make_optimizer(model.parameters(), lr, wd), batch,
-                "cross_entropy"))
+                loss))
             return (float(lsum / cnt),
-                    {n: p.grad for n, p in model.named_parameters()}, v)
+                    {n: None if p.grad is None else p.grad.cpu()
+                     for n, p in model.named_parameters()}, v)
 
         def ulp_moved(model):
             """model with every weight moved by an ulp, w * (1 +- 2**-23)."""
@@ -736,6 +910,92 @@ def main():
                     p.mul_(1.0 + sign.to(p.dtype) * 2.0 ** -23)
             return model
 
+        def gradient_gate(label, name, cfg, loader, hp, loss, expect):
+            """One step of ``cfg``'s model, initialized from SEED, on the
+            card against the same step on the CPU, on ``loader.example()``:
+            the loss, every parameter gradient against the CPU step that
+            takes the card's ReLU branches (the module docstring's gate),
+            each ReLU input whose branch differs within 1e-4 of its call's
+            largest |input| of 0, and the card's launches per variant
+            against ``expect``.  Returns the launches per (variant, D)."""
+            batch = loader.example()
+
+            def fresh():
+                return init_parameters(make_model(cfg), SEED)
+            card_relu = []
+            w0 = Counter(spmm.gather_segment_sum.width_launches)
+            with relu_branches(torch, card_relu, replay=False):
+                loss_g, grads_g, v_g = step_grads(
+                    fresh().to(dev), batch.to(dev), *hp, loss)
+            torch.cuda.synchronize()
+            w = Counter(spmm.gather_segment_sum.width_launches)
+            w.subtract(w0)
+            loss_c, grads_own, v_c = step_grads(fresh(), batch, *hp, loss)
+            with relu_branches(torch, card_relu, replay=True) as flips:
+                _, grads, v_r = step_grads(fresh(), batch, *hp, loss)
+            with relu_branches(torch, card_relu, replay=True):
+                _, grads_u, _ = step_grads(ulp_moved(fresh()), batch, *hp,
+                                           loss)
+            rel = abs(loss_g - loss_c) / abs(loss_c)
+            gscale = max(float(g.abs().max()) for g in grads.values()
+                         if g is not None)
+
+            def leaves(ref):
+                """(err / leaf scale, err / tol, name, |err|, leaf scale,
+                ulp move) of each gradient against ``ref``'s."""
+                out = []
+                for n, want in ref.items():
+                    check((grads_g[n] is None) == (want is None),
+                          f"{name}: {n} has a gradient on one device only")
+                    if want is None:
+                        continue
+                    scale = float(grads[n].abs().max())
+                    ulp = float((grads_u[n] - grads[n]).abs().max())
+                    atol = 1e-4 * scale + 8 * ulp + 1e-7 * gscale
+                    err = (grads_g[n] - want).abs()
+                    out.append((float(err.max()) / max(scale, 1e-30),
+                                float((err / (atol + 1e-4 * want.abs()))
+                                      .max()),
+                                n, float(err.max()), scale, ulp))
+                return out
+
+            def leaf(t):
+                return (f"{t[2]} (|err| {t[3]:.2e}, leaf max {t[4]:.2e}, "
+                        f"ulp-moved {t[5]:.2e}, err/tol {t[1]:.2f})")
+            gated, own = leaves(grads), leaves(grads_own)
+            over = [t for t in gated if t[1] > 1.0]
+            n_flip = sum(f[0] for f in flips)
+            flip_rel = max((f[1] / max(f[2], 1e-30) for f in flips),
+                           default=0.0)
+            log(f"[{label}] {name}: loss GPU {loss_g:.7f} CPU {loss_c:.7f} "
+                f"(rel diff {rel:.2e}); ReLU: {n_flip} of "
+                f"{sum(t.numel() for t in card_relu)} inputs in "
+                f"{sum(f[0] > 0 for f in flips)} of {len(flips)} calls took "
+                f"the other branch on the card, the largest |input| among "
+                f"them {max((f[1] for f in flips), default=0.0):.2e}, "
+                f"{flip_rel:.2e} of its "
+                f"call's largest; {len(gated)} gradients against the CPU "
+                f"step on the card's branches, largest {gscale:.2e}; worst "
+                f"by |err| / leaf max: {leaf(max(gated))}; worst by |err| / "
+                f"tol: {leaf(max(gated, key=lambda t: t[1]))}; against the "
+                f"CPU step on its own branches, "
+                f"{sum(t[1] > 1.0 for t in own)} outside the gate, worst "
+                f"{leaf(max(own, key=lambda t: t[1]))}; kernel launches "
+                f"{v_g} (expected {expect}), by width {dict(+w)}")
+            if over:
+                log(f"[{label}] {name}: {len(over)} gradients outside the "
+                    "gate: " + "; ".join(leaf(t) for t in over))
+            check(not over, f"{name}: {len(over)} gradients outside the gate")
+            check(flip_rel <= 1e-4, f"{name}: a ReLU input {flip_rel:.2e} "
+                  f"of its call's largest from 0 took another branch on the "
+                  f"card")
+            check(not v_c and not v_r,
+                  f"{name}: a CPU step launched {v_c or v_r}")
+            check(rel <= 1e-4, f"{name}: loss differs by {rel:.2e} > 1e-4")
+            check(v_g == expect, f"{name}: launches {v_g} != {expect}")
+            return +w
+
+        fam_w = Counter()
         for name, extra, expect in (
                 ("KPGCN", (), {gather_v: 2 * CSL_L}),
                 ("KPGraphSAGE", ("--aggr", "mean"),
@@ -747,54 +1007,85 @@ def main():
             fcfg = common.model_config(fargs, input_encoder=("linear", 1),
                                        task="graph_classification",
                                        output_size=10)
-            hp = (fargs.lr, fargs.l2_wd)
-            loss_c, grads, v_c = step_grads(
-                init_parameters(make_model(fcfg), SEED), cfb, *hp)
-            loss_u, grads_u, _ = step_grads(
-                ulp_moved(init_parameters(make_model(fcfg), SEED)), cfb, *hp)
-            loss_g, grads_g, v_g = step_grads(
-                init_parameters(make_model(fcfg), SEED).to(dev), cb, *hp)
+            fam_w.update(gradient_gate(
+                "families", name, fcfg, ctl, (fargs.lr, fargs.l2_wd),
+                "cross_entropy", expect))
+
+        mark("families")
+        # ---- 6. the QM9 slice: train_qm9 at the canonical width ----
+        n_qtr = QM9_EPOCHS * math.ceil(len(qtrain) / QM9_BATCH)
+        n_qeval = math.ceil(QM9_MOLECULES // 10 / QM9_BATCH)   # val or test
+
+        def qm9_run(label, backend, extra):
+            """train_qm9.main on the card: (rows, step losses, test MAE,
+            launches per variant, launches per (variant, D))."""
+            rows = []
+            spmm.reset_launch_counts()
+            t0 = time.perf_counter()
+            mae = train_qm9.main(
+                qm9_argv(work, os.path.join(work, "qm9"), "cuda", backend,
+                         extra),
+                epoch_callback=lambda e, m, row: rows.append(row))
             torch.cuda.synchronize()
-            fam_launches.update(v_g)
-            rel = abs(loss_g - loss_c) / abs(loss_c)
-            rel_u = abs(loss_u - loss_c) / abs(loss_c)
-            gscale = max(float(g.abs().max()) for g in grads.values()
-                         if g is not None)
-            leaves = []         # (err / leaf scale, err / tol, name, ...)
-            for n, want in grads.items():
-                check((grads_g[n] is None) == (want is None),
-                      f"{name}: {n} has a gradient on one device only")
-                if want is None:
-                    continue
-                got = grads_g[n].cpu()
-                scale = float(want.abs().max())
-                ulp = float((grads_u[n] - want).abs().max())
-                atol = 1e-4 * scale + 8 * ulp + 1e-7 * gscale
-                err = (got - want).abs()
-                leaves.append((float(err.max()) / max(scale, 1e-30),
-                               float((err / (atol + 1e-4 * want.abs())).max()),
-                               n, float(err.max()), scale, ulp))
-                torch.testing.assert_close(
-                    got, want, rtol=1e-4, atol=atol,
-                    msg=lambda m: f"{name} d{n}: {m}")
+            secs = time.perf_counter() - t0
+            v = dict(spmm.gather_segment_sum.variant_launches)
+            w = Counter(spmm.gather_segment_sum.width_launches)
+            qlosses = np.concatenate([r["step_losses"] for r in rows])
+            log(f"[{label}] {len(rows)} epochs in {secs:.1f} s: "
+                f"{len(qlosses)} train steps, train_loss "
+                + ", ".join(f"{r['train_loss']:.5f}" for r in rows)
+                + ", val_mae " + ", ".join(f"{r['val_mae']:.5f}"
+                                           for r in rows)
+                + f", test MAE {mae:.5f}; kernel launches {v}")
+            check(len(rows) == QM9_EPOCHS and len(qlosses) == n_qtr,
+                  f"{label}: {len(rows)} epochs, {len(qlosses)} train steps")
+            check(np.isfinite(qlosses).all() and math.isfinite(mae)
+                  and all(math.isfinite(r["val_loss"])
+                          and math.isfinite(r["val_mae"]) for r in rows),
+                  f"{label}: non-finite loss or MAE")
+            return rows, qlosses, mae, v, w
 
-            def leaf(t):
-                return (f"{t[2]} (|err| {t[3]:.2e}, leaf max {t[4]:.2e}, "
-                        f"ulp-moved {t[5]:.2e}, err/tol {t[1]:.2f})")
-            log(f"[families] {name}: loss GPU {loss_g:.7f} CPU {loss_c:.7f} "
-                f"(rel diff {rel:.2e}; the CPU's with every weight moved by "
-                f"an ulp {rel_u:.2e}); {len(leaves)} gradients, largest "
-                f"{gscale:.2e}; worst by |err| / leaf max: "
-                f"{leaf(max(leaves))}; worst by |err| / tol: "
-                f"{leaf(max(leaves, key=lambda t: t[1]))}; kernel launches "
-                f"{v_g} (expected {expect})")
-            check(not v_c, f"{name}: the CPU step launched {v_c}")
-            check(rel <= 1e-4, f"{name}: loss differs by {rel:.2e} > 1e-4")
-            check(v_g == expect, f"{name}: launches {v_g} != {expect}")
-        fam_w = Counter(spmm.gather_segment_sum.width_launches)
-        fam_w.subtract(fam_w0)
+        rows_q, qlosses, _, qm9_launches, qm9_w = qm9_run(
+            "qm9", "pallas", QM9_VN_RD)
+        n_qev = n_qeval * (QM9_EPOCHS + sum("test_loss" in r for r in rows_q))
+        expect_q = {fused_v: (n_qtr + n_qev) * QM9_L, gather_v: n_qtr * QM9_L}
+        check(qm9_launches == expect_q and set(qm9_w) == {
+            (fused_v, QM9_H), (gather_v, QM9_H)},
+              f"qm9 kernel launches {qm9_launches} {dict(qm9_w)} != "
+              f"{expect_q} at D={QM9_H} (per train step L fused forward + L "
+              f"gather backward, per eval step L fused forward)")
+        same_first_step("qm9", float(qlosses[0]), qmcfg, qloaders["pallas"],
+                        {"coo": qloaders["coo"],
+                         "dense": qloaders["dense"]}, "mse")
+        qm9_w.update(gradient_gate(
+            "qm9", f"KPGINPlus K={QM9_K} L={QM9_L} vn+rd", qmcfg,
+            qloaders["pallas"], (qargs.lr, qargs.l2_wd), "mse",
+            {fused_v: QM9_L, gather_v: QM9_L}))
 
-        # ---- 6. times, on the flagship k=8 plan ----
+        mark("qm9")
+        # ---- 7. the dense backend end to end, and KPGINPrime at K=16 ----
+        _, dlosses, _, dense_launches, _ = qm9_run(
+            "dense", "coo", QM9_VN_RD + ("--dense",))
+        rel = abs(dlosses[0] - qlosses[0]) / abs(qlosses[0])
+        log(f"[dense] first-step loss {dlosses[0]:.7f}, the pallas run's "
+            f"{qlosses[0]:.7f} (rel diff {rel:.2e})")
+        check(not dense_launches, f"the dense run launched {dense_launches}")
+        check(rel <= 1e-4, f"dense: first-step loss differs by {rel:.2e} "
+              f"from the pallas run's > 1e-4")
+        pd = QM9_H // PRIME_K
+        prime_w = gradient_gate(
+            "qm9", f"KPGINPrime K={PRIME_K} L={PRIME_L}", pmcfg, ptl,
+            (pargs.lr, pargs.l2_wd), "mse",
+            {fused_v: PRIME_L, gather_v: PRIME_L})
+        expect_pw = {(fused_v, pd): 1, (gather_v, pd): 1,
+                     (fused_v, QM9_H): PRIME_L - 1,
+                     (gather_v, QM9_H): PRIME_L - 1}
+        check(dict(prime_w) == expect_pw,
+              f"KPGINPrime launches by width {dict(prime_w)} != {expect_pw} "
+              f"(one K-hop layer at D={pd}, then GINE at D={QM9_H})")
+
+        mark("dense and KPGINPrime")
+        # ---- 8. times, on the flagship k=8 plan ----
         def sparse(c, dtype):
             n_e = c.senders.shape[0]
             return torch.sparse_csr_tensor(
@@ -878,15 +1169,16 @@ def main():
         profile_step(torch, lambda: train_step(model, opt, batch), step_ms,
                      "flagship")
 
+        mark("time flagship")
         # ---- the same times at the CSL shapes ----
-        def csl_times(sub, D, label):
-            """The f32 variants where the CSL path launches them over this
+        def shape_times(sub, D, label, vk):
+            """The f32 variants where the main path launches them over this
             plan (the fused form over fwd, the gather over bwd) and the
-            gather over fwd beside torch.sparse.mm; returns the fused
-            form's inputs and times."""
+            gather over fwd beside torch.sparse.mm; ``vk`` is the hop-k
+            table's rows.  Returns the fused form's inputs and times."""
             t1c = torch.randn(sub.counts1.shape[1], D, device=dev,
                               generator=gen)
-            tkc = (torch.randn(cvk, D, device=dev, generator=gen)
+            tkc = (torch.randn(vk, D, device=dev, generator=gen)
                    if sub.K > 1 else None)
             kw = dict(codes=sub.fwd.codes, table1=t1c, tablek=tkc)
             xf = [torch.randn(sub.fwd.n_cols, D, device=dev, generator=gen)
@@ -906,8 +1198,9 @@ def main():
                     f"{csr.n_rows} rows, {csr.senders.shape[0]} edges")
             return xf, kw, out
 
-        _, _, gt = csl_times(c1, CSL_H, "csl k=1 (GINE)")
-        xf, kw, ct = csl_times(cplan, CSL_H // CSL_K, f"csl k={CSL_K}")
+        _, _, gt = shape_times(c1, CSL_H, "csl k=1 (GINE)", cvk)
+        xf, kw, ct = shape_times(cplan, CSL_H // CSL_K, f"csl k={CSL_K}",
+                                 cvk)
         # KPGCN's aggregation, the composition a scale/mean epilogue would
         # replace: sender pre-scale, the gather, the sender-weighted
         # histograms, K GEMMs, the receiver scale
@@ -944,36 +1237,77 @@ def main():
             f"{c_union / cstep_ms / 1e3:.3f}M union edges/s ({c_union} "
             f"union edges, batch {CSL_BATCH})")
         profile_step(torch, csl_step, cstep_ms, "csl")
+
+        mark("time csl")
+        # ---- the same times at the QM9 shapes ----
+        _, _, qt = shape_times(qplan, QM9_H, f"qm9 k={QM9_K}", qvk)
+        _, _, pt = shape_times(pplan, pd, f"qm9 KPGINPrime k={PRIME_K}", pvk)
+        _, _, pgt = shape_times(pplan.slice_hops(1), QM9_H,
+                                "qm9 KPGINPrime k=1 (GINE)", pvk)
+        # the QM9 train step on one fixed batch, on the kernel and on dense
+        q_union = sum(g.num_edges for g in qtrain[:QM9_BATCH])
+        for label, b, expect in (
+                ("qm9 pallas", qfb, {fused_v: QM9_L, gather_v: QM9_L}),
+                ("qm9 dense", qdb, {})):
+            qmodel = init_parameters(make_model(qmcfg), SEED).to(dev)
+            qopt = make_optimizer(qmodel.parameters(), qargs.lr)
+            qb = b.to(dev)
+
+            def qm9_step():
+                return train_step(qmodel, qopt, qb, "mse")
+            _, v = launched(spmm, qm9_step)
+            check(v == expect, f"the {label} train step launched {v}")
+            qstep_ms = host_step_ms(torch, qm9_step)
+            log(f"[time] {label} train step {qstep_ms:.2f} ms, "
+                f"{q_union / qstep_ms / 1e3:.3f}M union edges/s ({q_union} "
+                f"union edges, batch {QM9_BATCH})")
+            profile_step(torch, qm9_step, qstep_ms, label)
+        mark("time qm9")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     check(set(errs) == set(variants),
           f"variants checked {sorted(errs)} != {sorted(variants)}")
-    # launches of every path: the flagship, CSL and family runs
-    all_launches = Counter(path_launches) + Counter(csl_launches) \
-        + fam_launches
-    all_w = path_w + csl_w + fam_w
-    # the main path's widths, each timed on the CSR where it launches
-    shapes = [(f"flagship k={K} plan", H, times[fused_v], times[gather_v]),
-              (f"csl k={CSL_K} plan", CSL_H // CSL_K, ct[fused_v, "fwd"],
-               ct[gather_v, "bwd"]),
-              ("csl k=1 slice (GINE)", CSL_H, gt[fused_v, "fwd"],
-               gt[gather_v, "bwd"])]
-    check(set(all_w) <= {(v, D) for _, D, _, _ in shapes
-                         for v in (fused_v, gather_v)},
-          f"the paths launched {dict(all_w)}, outside the timed widths")
+    # launches by (variant, D) of the flagship, CSL and family runs, whose
+    # widths are all distinct, and of the QM9 run and KPGINPrime step
+    zinc_csl_w = path_w + csl_w + fam_w
+    all_launches = Counter()
+    for (vname, _), n in (zinc_csl_w + qm9_w + prime_w).items():
+        all_launches[vname] += n
+    # the main path's shapes, each timed on the CSR where it launches:
+    # (name suffix, label, D, error key, fused times, gather times,
+    # launches by (variant, D) of the run that takes that shape)
+    shapes = [("", f"flagship k={K} plan", H, H, times[fused_v],
+               times[gather_v], zinc_csl_w),
+              ("", f"csl k={CSL_K} plan", CSL_H // CSL_K, CSL_H // CSL_K,
+               ct[fused_v, "fwd"], ct[gather_v, "bwd"], zinc_csl_w),
+              ("", "csl k=1 slice (GINE)", CSL_H, CSL_H, gt[fused_v, "fwd"],
+               gt[gather_v, "bwd"], zinc_csl_w),
+              (" qm9", f"qm9 k={QM9_K} plan", QM9_H, "qm9",
+               qt[fused_v, "fwd"], qt[gather_v, "bwd"], qm9_w),
+              (" qm9 KPGINPrime", f"qm9 KPGINPrime k={PRIME_K} plan", pd,
+               "prime", pt[fused_v, "fwd"], pt[gather_v, "bwd"], prime_w),
+              (" qm9 KPGINPrime GINE", "qm9 KPGINPrime k=1 slice (GINE)",
+               QM9_H, "prime gine", pgt[fused_v, "fwd"],
+               pgt[gather_v, "bwd"], prime_w)]
+    check(set(zinc_csl_w) <= {(v, s[2]) for s in shapes[:3]
+                              for v in (fused_v, gather_v)},
+          f"the paths launched {dict(zinc_csl_w)}, outside the timed widths")
     entries = [dict(name=vname, **KERNEL, launches=all_launches.get(vname, 0),
                     max_abs_err=errs[vname], ms=ms, plain_ms=plain,
                     bound_ms=bound, bound_by=by, library_ms=lib)
                for vname, (ms, plain, lib, bound, by) in times.items()]
-    for label, D, t_fused, t_gather in shapes:
+    for suffix, label, D, key, t_fused, t_gather, w in shapes:
         for vname, (ms, plain, lib, bound, by) in ((fused_v, t_fused),
                                                    (gather_v, t_gather)):
             entries.append(dict(
-                name=f"{vname} D={D}", **KERNEL, shape=f"{label}, D={D}",
-                launches=all_w[vname, D], max_abs_err=errs_w[vname, D],
-                ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                library_ms=lib))
+                name=f"{vname} D={D}{suffix}", **KERNEL,
+                shape=f"{label}, D={D}", launches=w[vname, D],
+                max_abs_err=errs_w[vname, key], ms=ms, plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=lib))
+    log("[phases] seconds: " + ", ".join(
+        f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks, marks[1:]))
+        + f"; total {marks[-1][1] - marks[0][1]:.1f}")
     log(card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

@@ -2,13 +2,14 @@
 
 A batch of ragged graphs is packed into one padded ``GraphBatch`` with the
 JAX package's layout, so one list of graphs gives the same node layout in
-both packages: graphs are concatenated node-wise, node slot ``n_pad - 1``
-and graph slot ``g_pad - 1`` are reserved for padding, and padded nodes
-belong to the masked last graph slot.  Masks mark real entries everywhere.
-
-``collate`` gives a receiver-sorted COO edge list; ``collate_pallas``
-turns it into the kernel plan (ops/spmm.py), the adjacency this slice
-trains on.  The TPU-only rounding of n_pad up to a kernel tile is gone.
+both packages.  ``collate`` (COO) and ``collate_pallas`` (the kernel plan,
+ops/spmm.py) concatenate graphs node-wise; node slot ``n_pad - 1`` and
+graph slot ``g_pad - 1`` are reserved for padding, and padded nodes belong
+to the masked last graph slot.  ``collate_dense`` gives graph b the node
+slots [b * n_slot, (b + 1) * n_slot) and a dense hop-attr tile
+(ops/adjacency.DenseAdj); there is no reserved graph slot, and padded
+nodes carry their own slot's graph id.  Masks mark real entries
+everywhere.  The TPU-only rounding of n_pad up to a kernel tile is gone.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops.adjacency import COOAdj
+from ..ops.adjacency import COOAdj, DenseAdj
 from ..ops.spmm import build_plan
 from .data import Graph
 
@@ -104,32 +105,29 @@ def pad_sizes(graphs: Sequence[Graph], spec: Optional[BucketSpec] = None
     return n_pad, e_pad, len(graphs) + 1
 
 
-def _cat_nodes(graphs, field, n_pad):
+def _cat_nodes(graphs, field, n_pad, slot=None):
+    """A node-level field, padded to n_pad rows; with ``slot`` (dense
+    mode) graph b starts at row b * slot."""
     arrs = [getattr(g, field) for g in graphs]
     if any(a is None for a in arrs):
         return None
     a0 = np.asarray(arrs[0])
     out = np.zeros((n_pad,) + a0.shape[1:], dtype=a0.dtype)
     off = 0
-    for g, a in zip(graphs, arrs):
-        out[off:off + g.num_nodes] = np.asarray(a)
+    for b, (g, a) in enumerate(zip(graphs, arrs)):
+        o = b * slot if slot is not None else off
+        out[o:o + g.num_nodes] = np.asarray(a)
         off += g.num_nodes
     return out
 
 
-def _collate_y(graphs, g_pad, n_pad, y_is_node_level):
+def _collate_y(graphs, g_pad, n_pad, y_is_node_level, slot=None):
     ys = [g.y for g in graphs]
     if any(v is None for v in ys):
         return None
-    y0 = np.asarray(ys[0])
     if y_is_node_level:
-        y = np.zeros((n_pad,) + y0.shape[1:], dtype=y0.dtype)
-        off = 0
-        for g in graphs:
-            y[off:off + g.num_nodes] = np.asarray(g.y)
-            off += g.num_nodes
-        return y
-    y0 = y0.reshape(-1)
+        return _cat_nodes(graphs, "y", n_pad, slot)
+    y0 = np.asarray(ys[0]).reshape(-1)
     y = np.zeros((g_pad, y0.shape[0]) if y0.shape[0] > 1 else (g_pad,),
                  dtype=y0.dtype)
     for i, g in enumerate(graphs):
@@ -196,22 +194,65 @@ def collate(
     adj = COOAdj(senders=_t(senders), receivers=_t(receivers),
                  edge_attr=_t(edge_attr), edge_mask=_t(edge_mask),
                  n_nodes=n_pad)
+    return _finish(graphs, adj, n_pad, g_pad, node_mask, node_graph_ids,
+                   graph_mask, y_is_node_level)
+
+
+def _finish(graphs, adj, n_pad, g_pad, node_mask, node_graph_ids,
+            graph_mask, y_is_node_level, slot=None) -> GraphBatch:
+    """The batch around an adjacency: every node-level field padded to
+    n_pad rows (graph b at row b * slot in dense mode), y and the
+    masks."""
+    def nodes(field):
+        return _t(_cat_nodes(graphs, field, n_pad, slot))
     return GraphBatch(
-        x=_t(_cat_nodes(graphs, "x", n_pad)),
-        node_mask=_t(node_mask),
-        node_graph_ids=_t(node_graph_ids),
-        pe_attr=_t(_cat_nodes(graphs, "pe_attr", n_pad)),
-        peripheral_edge_attr=_t(_cat_nodes(graphs, "peripheral_edge_attr",
-                                           n_pad)),
-        peripheral_config_attr=_t(_cat_nodes(
-            graphs, "peripheral_config_attr", n_pad)),
-        rd=_t(_cat_nodes(graphs, "rd", n_pad)),
-        z=_t(_cat_nodes(graphs, "z", n_pad)),
-        pos=_t(_cat_nodes(graphs, "pos", n_pad)),
-        adj=adj,
-        y=_t(_collate_y(graphs, g_pad, n_pad, y_is_node_level)),
-        graph_mask=_t(graph_mask),
-    )
+        x=nodes("x"), node_mask=_t(node_mask),
+        node_graph_ids=_t(node_graph_ids), pe_attr=nodes("pe_attr"),
+        peripheral_edge_attr=nodes("peripheral_edge_attr"),
+        peripheral_config_attr=nodes("peripheral_config_attr"),
+        rd=nodes("rd"), z=nodes("z"), pos=nodes("pos"), adj=adj,
+        y=_t(_collate_y(graphs, g_pad, n_pad, y_is_node_level, slot)),
+        graph_mask=_t(graph_mask))
+
+
+def collate_dense(
+    graphs: Sequence[Graph],
+    n_slot: int,
+    v1: int,
+    vk: int,
+    g_pad: Optional[int] = None,
+    y_is_node_level: bool = False,
+) -> GraphBatch:
+    """Dense collation (``--backend dense``): graph b takes node slots
+    [b * n_slot, (b + 1) * n_slot) and its (K, n_slot, n_slot) hop-attr
+    tile; g_pad defaults to the number of graphs, with no reserved pad
+    slot.  v1/vk are the hop-1 / hop-k attr vocab sizes (num_hop1_edge +
+    2 and max_pe_num + 2) of the code histograms."""
+    B = len(graphs)
+    g_pad = g_pad if g_pad is not None else B
+    if B > g_pad:
+        raise ValueError(f"batch of {B} graphs > g_pad={g_pad}")
+    K = graphs[0].K
+    for g in graphs:
+        if g.num_nodes > n_slot:
+            raise ValueError(f"graph with {g.num_nodes} nodes > "
+                             f"n_slot={n_slot}")
+    n_pad = g_pad * n_slot
+    hop_attr = np.zeros((g_pad, K, n_slot, n_slot), dtype=np.int32)
+    node_mask = np.zeros((n_pad,), dtype=bool)
+    node_graph_ids = np.repeat(np.arange(g_pad, dtype=np.int64), n_slot)
+    for b, g in enumerate(graphs):
+        node_mask[b * n_slot:b * n_slot + g.num_nodes] = True
+        if g.num_edges:
+            u, v = g.edge_index[0], g.edge_index[1]
+            ea = np.asarray(g.edge_attr).reshape(g.num_edges, K)
+            for k in range(K):              # [k, i, j]: edge j -> i
+                hop_attr[b, k, v, u] = ea[:, k]
+    graph_mask = np.zeros((g_pad,), dtype=bool)
+    graph_mask[:B] = True
+    adj = DenseAdj.from_codes(_t(hop_attr), v1, vk)
+    return _finish(graphs, adj, n_pad, g_pad, node_mask, node_graph_ids,
+                   graph_mask, y_is_node_level, slot=n_slot)
 
 
 def collate_pallas(

@@ -1,8 +1,8 @@
 """Typed model configuration and the model factory (counterpart of
 kpgnn_tpu/models/factory.py).  Every family of ``MODEL_NAMES`` builds:
 KPGINPlus on GNNPlus, KPGINPrime on GNNPrime, KPGCN, KPGIN and
-KPGraphSAGE on GNN.  The node heads, the QM9 input encoder and bf16
-compute are not ported yet and raise."""
+KPGraphSAGE on GNN.  The node heads and bf16 compute are not ported yet
+and raise."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,7 +10,8 @@ from typing import Tuple
 
 from torch import nn
 
-from ..nn.encoders import EmbeddingEncoder, LinearEncoder
+from ..nn.encoders import (EmbeddingEncoder, LinearEncoder,
+                           QM9InputEncoder)
 from ..nn.layers import make_gnn_layer
 from .backbones import GNN, GNNPlus, GNNPrime
 from .heads import GraphClassification, GraphRegression
@@ -52,7 +53,8 @@ class ModelConfig:
     wo_peripheral_configuration: bool = False
     wo_path_encoding: bool = False
     wo_edge_feature: bool = False
-    # input encoding: ("embedding", vocab) | ("linear", in_dim) | ("qm9", _)
+    # input encoding: ("embedding", vocab) | ("linear", in_dim) |
+    # ("qm9", use_pos)
     input_encoder: Tuple[str, int] = ("linear", 1)
     # task head
     task: str = "graph_classification"
@@ -84,7 +86,7 @@ def _make_encoder(cfg: ModelConfig) -> nn.Module:
     if kind == "linear":
         return LinearEncoder(int(arg), cfg.hidden_size)
     if kind == "qm9":
-        raise _not_ported(f"the {kind!r} input encoder")
+        return QM9InputEncoder(cfg.hidden_size, use_pos=bool(arg))
     raise ValueError(f"unknown input encoder {kind!r}")
 
 

@@ -79,3 +79,30 @@ class LinearEncoder(nn.Module):
 
     def forward(self, batch) -> torch.Tensor:
         return self.init_proj(batch.x.float())
+
+
+QM9_NODE_FEATURES = 11          # one-hot type H/C/N/O/F + 6 atom scalars
+
+
+class QM9InputEncoder(nn.Module):
+    """An 8-wide z embedding over 1000 rows (summed over the codes of a
+    multi-code z), concatenated with x (and pos under ``use_pos``), then
+    ``init_proj``.  The 1000-row table goes through ``F.embedding``
+    (``PaddedEmbed``): every QM9 node reads one of five ids, where an
+    indexing gather's backward would serialise."""
+
+    def __init__(self, hidden_size: int, use_pos: bool = False):
+        super().__init__()
+        self.use_pos = use_pos
+        self.z_embedding = PaddedEmbed(1000, 8, padding_idx=None)
+        self.init_proj = TorchLinear(
+            8 + QM9_NODE_FEATURES + (3 if use_pos else 0), hidden_size)
+
+    def forward(self, batch) -> torch.Tensor:
+        z_emb = self.z_embedding(batch.z)
+        if z_emb.dim() == 3:
+            z_emb = z_emb.sum(dim=1)
+        parts = [z_emb, batch.x.float()]
+        if self.use_pos:
+            parts.append(batch.pos.float())
+        return self.init_proj(torch.cat(parts, dim=-1))

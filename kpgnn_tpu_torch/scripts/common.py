@@ -4,10 +4,11 @@ kpgnn_tpu/scripts/common.py).
 The argparse surface is the JAX package's, flag for flag, plus
 ``--device`` (default ``cuda``).  ``--backend`` takes ``coo`` (the
 flag's default, as in the JAX CLI: plain PyTorch ``index_add_``
-aggregation, as the JAX COO backend is plain XLA) or ``pallas`` (the
-hand-written CUDA gather/segment-sum).  Options whose code paths are not
-ported yet raise ``NotImplementedError`` naming ROADMAP.md instead of
-being ignored: ``--backend dense|banded``, ``--dense``, ``--bf16``,
+aggregation, as the JAX COO backend is plain XLA), ``pallas`` (the
+hand-written CUDA gather/segment-sum) or ``dense`` (per-graph hop tiles,
+batched matmuls on cuBLAS; ``--dense`` is its shorthand).  Options whose
+code paths are not ported yet raise ``NotImplementedError`` naming
+ROADMAP.md instead of being ignored: ``--backend banded``, ``--bf16``,
 ``--parallel``, ``--resident on``, ``--load_path``, ``--save_checkpoints``,
 ``--profile_dir``.  The prep cache (``--cache_dir``, ``--reprocess``) and
 the prep worker pool (``--num_workers``) are not ported: prep runs
@@ -105,13 +106,14 @@ def base_parser(description: str, **defaults) -> argparse.ArgumentParser:
     p.add_argument("--profile_dir", type=str, default=None,
                    help="profiler trace of epoch 1 (not ported yet)")
     p.add_argument("--dense", action="store_true",
-                   help="shorthand for --backend dense (not ported yet)")
+                   help="shorthand for --backend dense")
     p.add_argument("--backend", type=str, default="coo",
                    choices=("coo", "dense", "pallas", "banded"),
                    help="adjacency backend: 'coo' (index_add_ segment "
-                        "sums) or 'pallas' (the fused-hop CUDA "
-                        "gather/segment-sum plan); 'dense' and 'banded' "
-                        "are not ported yet")
+                        "sums), 'pallas' (the fused-hop CUDA "
+                        "gather/segment-sum plan) or 'dense' (per-graph "
+                        "hop tiles, batched matmuls); 'banded' is not "
+                        "ported yet")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 activations (not ported yet)")
     p.add_argument("--matmul_precision", type=str,
@@ -185,12 +187,17 @@ def run_name(args, dataset: str) -> str:
             f"_L{args.num_layer}_h{args.hidden_size}_{args.combine}")
 
 
+def backend(args) -> str:
+    """The adjacency backend: ``--backend``, or dense under ``--dense``."""
+    return "dense" if args.dense else args.backend
+
+
 def check_ported(args) -> None:
     """Raise for options whose code paths are not ported yet."""
     unported = []
-    backend = "dense" if args.dense else args.backend
-    if backend not in ("coo", "pallas"):
-        unported.append(f"--backend {backend} (coo and pallas are ported)")
+    if backend(args) not in ("coo", "pallas", "dense"):
+        unported.append(f"--backend {backend(args)} (coo, pallas and dense "
+                        "are ported)")
     if args.bf16:
         unported.append("--bf16")
     if args.parallel:
@@ -236,13 +243,15 @@ def prepare(raw_graphs, args):
 
 
 def loader_kwargs(args, mcfg: ModelConfig) -> dict:
-    """Loader kwargs of the chosen backend; the kernel plan needs the
-    model's vocab sizes and refuses ``--aggr max``, as in the JAX CLI."""
-    if args.backend == "coo":
+    """Loader kwargs of the chosen backend; the kernel plan and the dense
+    tiles need the model's vocab sizes, and the plan refuses ``--aggr
+    max``, as in the JAX CLI."""
+    mode = backend(args)
+    if mode == "coo":
         return {"mode": "coo"}
-    if args.aggr == "max":
+    if args.aggr == "max" and mode == "pallas":
         raise SystemExit("--aggr max is not available on the pallas "
                          "backend (the kernel is sum-only) — use "
-                         "--backend coo")
-    return {"mode": "pallas", "v1": mcfg.num_hop1_edge + 2,
+                         "--backend coo or dense")
+    return {"mode": mode, "v1": mcfg.num_hop1_edge + 2,
             "vk": mcfg.max_pe_num + 2}

@@ -1,12 +1,13 @@
 """Batch iterator: Graph list -> stream of padded GraphBatches
-(counterpart of kpgnn_tpu/train/loader.py, modes "coo" and "pallas"; the
-dense and banded modes are not ported yet).
+(counterpart of kpgnn_tpu/train/loader.py, modes "coo", "pallas" and
+"dense"; the banded mode is not ported yet).
 
-Pad sizes are chosen once per loader (worst case over the dataset), as
-in the JAX loader, so one list of graphs gives the same node layout in
-both packages.  Shuffled iteration collates on a background thread;
-ordered (eval) iteration collates once and replays.  Batches are CPU
-tensors; the trainer moves them to its device.
+Pad sizes are chosen once per loader (worst case over the dataset; in
+dense mode the node slot of the largest graph), as in the JAX loader, so
+one list of graphs gives the same node layout in both packages.
+Shuffled iteration collates on a background thread; ordered (eval)
+iteration collates once and replays.  Batches are CPU tensors; the
+trainer moves them to its device.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
-from ..graph.batch import BucketSpec, GraphBatch, collate, collate_pallas
+from ..graph.batch import (BucketSpec, GraphBatch, collate, collate_dense,
+                           collate_pallas)
 from ..graph.data import Graph
 
 
@@ -62,10 +64,16 @@ def background_iter(factory, maxsize: int = 2):
         cancel.set()
 
 
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
 class GraphLoader:
     """mode="coo": batches carry the receiver-sorted edge list;
-    mode="pallas": the fused-hop kernel plan, whose v1/vk must match the
-    model's num_hop1_edge + 2 / max_pe_num + 2."""
+    mode="pallas": the fused-hop kernel plan; mode="dense": per-graph
+    hop-attr tiles of ``n_slot`` nodes (default: the largest graph,
+    rounded up to 8) and ``batch_size`` graph slots.  Pallas and dense
+    need v1/vk equal to the model's num_hop1_edge + 2 / max_pe_num + 2."""
 
     def __init__(
         self,
@@ -80,13 +88,14 @@ class GraphLoader:
         mode: str = "pallas",
         v1: Optional[int] = None,
         vk: Optional[int] = None,
+        n_slot: Optional[int] = None,
     ):
-        if mode not in ("coo", "pallas"):
+        if mode not in ("coo", "pallas", "dense"):
             raise NotImplementedError(
                 f"loader mode {mode!r} is not ported yet (ROADMAP.md, "
-                "Queue 1); use mode='coo' or 'pallas'")
-        if mode == "pallas" and (v1 is None or vk is None):
-            raise ValueError("pallas mode needs v1/vk vocab sizes")
+                "Queue 1); use mode='coo', 'pallas' or 'dense'")
+        if mode != "coo" and (v1 is None or vk is None):
+            raise ValueError(f"{mode} mode needs v1/vk vocab sizes")
         self.graphs = list(graphs)
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -95,6 +104,15 @@ class GraphLoader:
         self.mode = mode
         self.v1, self.vk = v1, vk
         spec = spec or BucketSpec()
+        if mode == "dense":
+            max_n = max(g.num_nodes for g in self.graphs)
+            self.n_slot = (n_slot if n_slot is not None
+                           else _round_up(max_n, 8))
+            if max_n > self.n_slot:
+                raise ValueError(f"n_slot {self.n_slot} < largest graph "
+                                 f"{max_n}")
+            self.g_pad = batch_size         # no reserved pad graph slot
+            return
         if n_pad is None or e_pad is None:
             # worst case: batch_size largest graphs end up together
             ns = sorted((g.num_nodes for g in self.graphs), reverse=True)
@@ -113,6 +131,10 @@ class GraphLoader:
         return math.ceil(len(self.graphs) / self.batch_size)
 
     def _collate(self, batch_graphs) -> GraphBatch:
+        if self.mode == "dense":
+            return collate_dense(batch_graphs, n_slot=self.n_slot, v1=self.v1,
+                                 vk=self.vk, g_pad=self.g_pad,
+                                 y_is_node_level=self.y_is_node_level)
         if self.mode == "coo":
             return collate(batch_graphs, n_pad=self.n_pad, e_pad=self.e_pad,
                            g_pad=self.g_pad,

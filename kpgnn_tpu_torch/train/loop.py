@@ -68,17 +68,29 @@ def train_step(model, opt, batch: GraphBatch, loss: str = "l1",
 
 
 @torch.no_grad()
-def eval_step(model, batch: GraphBatch, loss: str = "l1"
-              ) -> Dict[str, torch.Tensor]:
+def eval_step(model, batch: GraphBatch, loss: str = "l1",
+              metric: str = "same") -> Dict[str, torch.Tensor]:
     """Sums of one batch as device tensors, for exact epoch aggregation:
-    ``loss_sum`` and ``count``, and for cross entropy ``correct`` (real
-    graphs whose argmax is the label)."""
+    ``loss_sum`` and ``count``; ``correct`` (real graphs whose argmax is
+    the label) for accuracy or cross entropy; ``mae_sum`` / ``mse_sum``
+    when ``metric`` asks for an error the loss is not; and, for a 2-D y
+    under an l1 or mse loss, ``abs_per_target``.  ``metric`` is "same"
+    (the loss), "mae", "mse" or "accuracy"."""
     pred = model(batch, train=False)
-    lsum, cnt = _masked_loss(pred, batch.y, batch.graph_mask, loss)
+    mask = batch.graph_mask
+    lsum, cnt = _masked_loss(pred, batch.y, mask, loss)
     out = {"loss_sum": lsum, "count": cnt}
-    if loss == "cross_entropy":
-        out["correct"] = ((pred.argmax(-1) == batch.y.long())
-                          & batch.graph_mask).sum()
+    which = loss if metric == "same" else metric
+    if which == "accuracy" or loss == "cross_entropy":
+        out["correct"] = ((pred.argmax(-1) == batch.y.long()) & mask).sum()
+    if which in ("mae", "l1") and loss != "l1":
+        out["mae_sum"] = _masked_loss(pred, batch.y, mask, "l1")[0]
+    if which == "mse" and loss != "mse":
+        out["mse_sum"] = _masked_loss(pred, batch.y, mask, "mse")[0]
+    if batch.y is not None and batch.y.dim() == 2 and loss in ("l1", "mse"):
+        m = mask.to(pred.dtype)[:, None]
+        out["abs_per_target"] = ((pred.float() - batch.y.float()).abs()
+                                 * m).sum(0)
     return out
 
 
@@ -100,16 +112,28 @@ def train_epoch(model, opt, batches, loss: str = "l1",
     return float(s.sum() / max(c.sum(), 1.0)), s / np.maximum(c, 1.0)
 
 
-def evaluate(model, batches, loss: str = "l1") -> Dict[str, float]:
-    """Mean loss (and, for cross entropy, accuracy) over the real graphs
-    of all batches, with one host sync."""
-    steps = [eval_step(model, b, loss) for b in batches]
-    sums = {k: float(torch.stack([s[k] for s in steps]).double().sum())
-            for k in steps[0]}
-    count = max(sums["count"], 1.0)
-    out = {"loss": sums["loss_sum"] / count, "count": count}
-    if "correct" in sums:
-        out["accuracy"] = sums["correct"] / count
+def evaluate(model, batches, loss: str = "l1", metric: str = "same"
+             ) -> Dict[str, float]:
+    """The epoch metrics over the real graphs of all batches
+    (``summarize_eval_sums``), with one host sync."""
+    steps = [eval_step(model, b, loss, metric) for b in batches]
+    sums = {k: torch.stack([s[k] for s in steps]).double().sum(0).cpu()
+            .numpy() for k in steps[0]}
+    return summarize_eval_sums(sums)
+
+
+def summarize_eval_sums(sums: Dict[str, np.ndarray]) -> Dict[str, float]:
+    """Epoch metrics from summed eval-step outputs: ``loss`` and
+    ``count``, and ``accuracy``, ``mae``, ``mse``, ``mae_per_target``
+    where their sums are present."""
+    cnt = max(float(sums.get("count", 0.0)), 1.0)
+    out = {"loss": float(sums.get("loss_sum", 0.0)) / cnt, "count": cnt}
+    for key, name in (("correct", "accuracy"), ("mae_sum", "mae"),
+                      ("mse_sum", "mse")):
+        if key in sums:
+            out[name] = float(sums[key]) / cnt
+    if "abs_per_target" in sums:
+        out["mae_per_target"] = np.asarray(sums["abs_per_target"]) / cnt
     return out
 
 
@@ -120,13 +144,16 @@ class Trainer:
     device.  ``metric_mode="min"`` tracks the validation loss, "max" its
     accuracy; ``use_scheduler=False`` keeps the LR constant, as the
     expressiveness scripts do.  The plateau schedule is ported in "min"
-    mode only, so "max" requires ``use_scheduler=False``."""
+    mode only, so "max" requires ``use_scheduler=False``.
+    ``eval_metric`` adds an error to every evaluation (``evaluate``'s
+    ``metric``: QM9 trains on MSE and reports the MAE)."""
 
     model: torch.nn.Module
     cfg: TrainConfig
     loss: str = "l1"
     metric_mode: str = "min"
     use_scheduler: bool = True
+    eval_metric: str = "same"
     logger: Optional[object] = None
     device: str = "cuda"
 
@@ -163,7 +190,8 @@ class Trainer:
         def run_eval(loader):
             if id(loader) not in cached:        # eval batches stay resident
                 cached[id(loader)] = list(on_device(loader))
-            return evaluate(model, cached[id(loader)], loss=self.loss)
+            return evaluate(model, cached[id(loader)], self.loss,
+                            self.eval_metric)
 
         sched = ReduceLROnPlateau(factor=self.cfg.factor,
                                   patience=self.cfg.patience,

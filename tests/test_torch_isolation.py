@@ -65,6 +65,31 @@ def test_train_zinc_without_cuda_raises(tmp_path):
     assert not (tmp_path / "s").exists()
 
 
+def test_train_qm9_without_cuda_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from kpgnn_tpu_torch.scripts import train_qm9
+
+    for backend in ("pallas", "dense"):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            train_qm9.main(["--dataset_dir", str(tmp_path), "--save_dir",
+                            str(tmp_path / "s"), "--backend", backend])
+    assert not (tmp_path / "s").exists()
+
+
+def test_isolation_checks_cover_the_qm9_and_dense_modules():
+    """The QM9 script, the molecule loaders and the dense backend are among
+    the sources both isolation checks read and import."""
+    sources = {os.path.relpath(p, REPO) for p in port_sources()}
+    for mod in ("scripts/train_qm9.py", "data/molecules.py",
+                "ops/adjacency.py", "graph/batch.py", "nn/encoders.py"):
+        assert os.path.join("kpgnn_tpu_torch", mod) in sources, mod
+    from kpgnn_tpu_torch.data.molecules import QM9_CONVERSION
+    from kpgnn_tpu_torch.ops.adjacency import DenseAdj
+    assert QM9_CONVERSION.shape == (19,) and DenseAdj.__module__.startswith(
+        "kpgnn_tpu_torch.")
+
+
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     from kpgnn_tpu_torch.ops import cuda_lib
 

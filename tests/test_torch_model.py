@@ -254,7 +254,8 @@ def test_train_zinc_main_on_the_coo_backend(tmp_path):
     assert np.isfinite(rows[0]["step_losses"]).all()
 
 
-@pytest.mark.parametrize("flag", [["--backend", "banded"], ["--dense"],
+@pytest.mark.parametrize("flag", [["--backend", "banded"],
+                                  ["--resident", "on"],
                                   ["--bf16"], ["--parallel"]])
 def test_train_zinc_refuses_unported_options(tmp_path, flag):
     from kpgnn_tpu_torch.scripts import train_zinc

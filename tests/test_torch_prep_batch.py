@@ -170,7 +170,7 @@ def test_loader_shuffle_order_matches():
 def test_loader_refuses_unported_modes():
     ts = tkhop.extract_graphs(raw_molecules(2), tkhop.KHopConfig(K=2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GraphLoader(ts, 2, mode="dense", v1=4, vk=4)
+        GraphLoader(ts, 2, mode="banded", v1=4, vk=4)
 
 
 def test_coo_loader_layout_and_edges_match():
