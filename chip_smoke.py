@@ -57,7 +57,23 @@ Phases, each of which fails the run loudly:
      K=16 L=16 --residual --use_rd, the one main path whose K-hop layer
      launches at the kernel's 16 hops) against the CPU under the
      gradient gate, with its launches per width;
-  8. time   — on the flagship k=8 plan (CUDA events, after warm-up,
+  8. generated — run each generated-data script's ``main`` at its
+     canonical width for 2 epochs on --backend pallas: ``train_counting``
+     (KPGINPlus K=3 L=3 H=96, batch 64, 1000 graphs, task 0),
+     ``train_node_property`` (KPGINPlus K=6 L=6 H=128, batch 128, node
+     regression head, --data_scale 0.1, task 0), ``train_graph_property``
+     (K=6 L=6 H=96, batch 128, --data_scale 0.1, task 1) and ``train_tu``
+     (KPGIN on GNN, K=2 L=3 H=32, batch 32, fold 0 of a generated
+     MUTAG-scale GIN-format fixture, ``write_gin_fixture``; dropout 0,
+     since the CPU's and the card's generators draw different masks):
+     finite losses, exactly 2*L launches per train step and L per eval
+     step, and a first-step loss equal to the CPU's, to --backend coo's
+     and to --backend dense's on the card; then one Adam step of the
+     node-property config against the CPU under the gradient gate (the
+     node head and the node-level loss).  The kernel is checked at their
+     shapes (K=3 D=96, K=6 D=128, K=6 D=96, K=2 D=16, each over its
+     first batch's plan) in phase 2;
+  9. time   — on the flagship k=8 plan (CUDA events, after warm-up,
      rotating distinct inputs), each beside the least time the card could
      take: every kernel variant on the CSR where the main path launches it
      (the gather over the backward CSR, the fused form over the forward
@@ -70,15 +86,19 @@ Phases, each of which fails the run loudly:
      weighted histograms, K GEMMs, receiver scale) at D=12, the host's
      collate time per CSL batch, and the CSL train step with its profile;
      the kernel times at the QM9 shapes, and the QM9 train step on pallas
-     and on dense, each with its profile.
+     and on dense, each with its profile; the kernel times at the four
+     generated-data shapes, and the node-property train step with its
+     profile.
 The last lines are the card's name and power limit, a ``kernels`` JSON
 line, and ``{"ok": true, "device": {...}}``.  The ``kernels`` line has one
 entry per kernel variant, timed on the flagship plan, with the launches
 of every run at every width; then one entry per variant and main-path
 shape (the flagship's D=104, CSL's D=12 over the k=4 plan, GINE's D=48
 over its hop-1 slice, QM9's D=128 over the k=8 plan, KPGINPrime-QM9's D=8
-over the k=16 plan and D=128 over its hop-1 slice), each with the
-launches of the run that takes that shape, its error, times and bound.
+over the k=16 plan and D=128 over its hop-1 slice, counting's D=96 over
+the k=3 plan, node property's D=128 and graph property's D=96 over
+their k=6 plans, TU's D=16 over the k=2 plan), each with the launches
+of the run that takes that shape, its error, times and bound.
 
 Tolerances: f32 gather vs plain version atol 1e-5, except the hub row,
 whose 10k-term sums may differ in summation order by up to 1e-6 of the
@@ -92,7 +112,8 @@ version on the same bf16 values, both summed in f32, rtol 1e-3; first
 train-step loss GPU vs CPU, and kernel vs COO backend on the card, rtol
 1e-4 (on the card the COO backend's index_add_ sums with atomics, in an
 order that varies from run to run, so neither side is bitwise fixed);
-gradient gate (the family steps, the QM9 step, KPGINPrime K=16 L=16),
+gradient gate (the family steps, the QM9 step, KPGINPrime K=16 L=16,
+the node-property step),
 one step on the card against the same step on the CPU: the loss rtol
 1e-4; every parameter gradient, against the CPU step that takes the
 card's ReLU branches, rtol 1e-4 and an atol of 1e-4 of that parameter's
@@ -122,6 +143,7 @@ import sys
 import tempfile
 import time
 from collections import Counter
+from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 K, L, H, BATCH = 8, 8, 104, 64
@@ -131,6 +153,21 @@ CSL_K, CSL_L, CSL_H, CSL_BATCH, CSL_EPOCHS = 4, 4, 48, 64, 2
 QM9_K, QM9_L, QM9_H, QM9_BATCH, QM9_EPOCHS = 8, 8, 128, 128, 2
 QM9_MOLECULES, QM9_FIXTURE_SEED = 640, 7
 PRIME_K = PRIME_L = 16          # the QM9 sweep's KPGINPrime config
+GEN_EPOCHS = 2
+# the generated-data scripts at their canonical widths (their defaults):
+# label -> (script, data-size arguments, loss, node-level target).  TU
+# trains without dropout here: the CPU's and the card's generators draw
+# different masks, and the first step is compared across devices
+GENERATED = {
+    "counting": ("train_counting", ("--n_graphs", "1000", "--task", "0"),
+                 "l1", False),
+    "nprop": ("train_node_property", ("--data_scale", "0.1", "--task", "0"),
+              "mse", True),
+    "gprop": ("train_graph_property", ("--data_scale", "0.1", "--task",
+                                       "1"), "mse", False),
+    "tu": ("train_tu", ("--folds", "1", "--drop_prob", "0"),
+           "cross_entropy", False),
+}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM data sheet, f32 outside the MMA
 KERNEL = dict(route="cuda",
@@ -193,6 +230,47 @@ def run_tool(name, *argv):
         sys.argv = saved
 
 
+def write_gin_fixture(root, name="MUTAG", n_graphs=188, seed=5):
+    """A GIN-format TU dataset at MUTAG's scale under <root>/<name>: 188
+    graphs (class 1 a third of them) of 10..28 nodes, a random tree plus
+    one extra edge (four for class 1), 7 node tags; and 10-fold index
+    files stratified by class (folds split by index modulo 10 can hold
+    one class only)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    d = os.path.join(root, name)
+    os.makedirs(os.path.join(d, "10fold_idx"))
+    labels = (np.arange(n_graphs) % 3 == 0).astype(np.int64)
+    rng.shuffle(labels)
+    lines = [str(n_graphs)]
+    for label in labels:
+        n = int(rng.integers(10, 29))
+        adj = [set() for _ in range(n)]
+        edges = [(u, int(rng.integers(0, u))) for u in range(1, n)]
+        edges += [tuple(map(int, rng.integers(0, n, 2)))
+                  for _ in range(1 + 3 * label)]
+        for u, v in edges:
+            if u != v:
+                adj[u].add(v)
+                adj[v].add(u)
+        tags = rng.integers(0, 7, n)
+        lines.append(f"{n} {label}")
+        lines += [f"{tags[u]} {len(adj[u])} "
+                  + " ".join(map(str, sorted(adj[u]))) for u in range(n)]
+    with open(os.path.join(d, f"{name}.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    fold_of = np.zeros(n_graphs, np.int64)
+    for c in (0, 1):
+        idx = np.flatnonzero(labels == c)
+        fold_of[idx] = np.arange(len(idx)) % 10
+    for f in range(10):
+        for split, idx in (("train", np.flatnonzero(fold_of != f)),
+                           ("test", np.flatnonzero(fold_of == f))):
+            with open(os.path.join(d, "10fold_idx",
+                                   f"{split}_idx-{f + 1}.txt"), "w") as fh:
+                fh.write("\n".join(map(str, idx)) + "\n")
+
+
 def qm9_argv(dataset_dir, save_dir, device, backend, extra=()):
     """train_qm9 at the canonical width; ``extra`` picks the sweep's
     config (its first: --virtual_node --use_rd)."""
@@ -201,6 +279,14 @@ def qm9_argv(dataset_dir, save_dir, device, backend, extra=()):
             "--num_layer", str(QM9_L), "--hidden_size", str(QM9_H),
             "--batch_size", str(QM9_BATCH), "--num_epochs", str(QM9_EPOCHS),
             "--task", "0", "--seed", str(SEED), *extra]
+
+
+def generated_argv(label, work, device, backend):
+    """The GENERATED script ``label`` for GEN_EPOCHS epochs, one run."""
+    return ["--save_dir", os.path.join(work, label), "--device", device,
+            "--backend", backend, "--dataset_dir", work, "--num_epochs",
+            str(GEN_EPOCHS), "--runs", "1", "--seed", str(SEED),
+            *GENERATED[label][1]]
 
 
 QM9_VN_RD = ("--virtual_node", "--use_rd")
@@ -226,10 +312,14 @@ def csl_argv(save_dir, device, backend, model_name="KPGIN", extra=()):
 
 
 def first_batch(loader):
-    """The first batch a (shuffled) loader yields."""
+    """The first batch a (shuffled) loader yields, leaving its shuffle
+    where it was: every call gives the batch the loader's next epoch
+    starts with."""
+    state = loader.rng.bit_generator.state
     it = iter(loader)
     batch = next(it)
     it.close()
+    loader.rng.bit_generator.state = state
     return batch
 
 
@@ -406,7 +496,8 @@ def main():
     from kpgnn_tpu_torch.ops import cuda_lib, spmm
     from kpgnn_tpu_torch.scripts import common, train_csl, train_qm9, train_zinc
     from kpgnn_tpu_torch.train.loader import GraphLoader
-    from kpgnn_tpu_torch.train.loop import _masked_loss, train_step
+    from kpgnn_tpu_torch.train.loop import (_batch_target_mask, _masked_loss,
+                                            train_step)
     from kpgnn_tpu_torch.train.state import make_optimizer
 
     common.set_full_f32()
@@ -530,6 +621,52 @@ def main():
         log(f"[plan] qm9 dense batch: n_slot {qloaders['dense'].n_slot}, "
             f"hop_attr {tuple(qdb.adj.hop_attr.shape)}; split "
             f"{len(qtrain)} train graphs")
+
+        # the generated-data slices: each script's own data and model
+        # config, and its run-0 (TU: fold-0) train split in each backend's
+        # loader (same seed), so each plan has its main path's shapes
+        write_gin_fixture(work)
+        slices = {}
+        for label, (name, _, loss, node_level) in GENERATED.items():
+            mod = importlib.import_module(f"kpgnn_tpu_torch.scripts.{name}")
+            argv = generated_argv(label, work, "cuda", "pallas")
+            ga = mod.parser().parse_args(argv)
+            if name == "train_tu":
+                graphs, folds, n_tag, n_cls = mod.load(ga)
+                gcfg = mod.config(ga, n_tag, n_cls)
+                g_tr, g_te = folds[0]
+                g_split = ([graphs[i] for i in g_tr], [], g_te)
+            else:
+                gsplits = mod.datasets(ga)
+                gcfg = mod.config(ga)
+                g_split = tuple(gsplits[k] for k in ("train", "val", "test"))
+            gB = ga.batch_size
+            g_lk = common.loader_kwargs(ga, gcfg)
+            g_loaders = {m: GraphLoader(g_split[0], gB, shuffle=True,
+                                        seed=SEED, y_is_node_level=node_level,
+                                        **dict(g_lk, mode=m))
+                         for m in ("pallas", "coo", "dense")}
+            gb = g_loaders["pallas"].example()
+            sl = slices[label] = SimpleNamespace(
+                main=mod.main, argv=argv, cfg=gcfg, loss=loss,
+                node_level=node_level, L=ga.num_layer,
+                D=ga.hidden_size // (1 if ga.model_name == "KPGINPlus"
+                                     else ga.K),
+                epochs=GEN_EPOCHS, train_steps=len(g_loaders["pallas"]),
+                val_steps=math.ceil(len(g_split[1]) / gB),
+                test_steps=math.ceil(len(g_split[2]) / gB),
+                loaders=g_loaders, batch=gb, plan=gb.adj.to(dev), args=ga,
+                union=sum(g.num_edges for g in g_split[0][:gB]))
+            gd = sl.plan.fwd.indptr[1:] - sl.plan.fwd.indptr[:-1]
+            log(f"[plan] {label} batch ({ga.model_name} K={ga.K} L="
+                f"{ga.num_layer} H={ga.hidden_size}, batch {gB}, kernel D="
+                f"{sl.D}): {int(gb.node_mask.sum())} nodes, n_pad "
+                f"{gb.n_pad}, {sl.union} union edges, K*n_pad = "
+                f"{sl.plan.fwd.n_rows} rows, {int((gd > 0).sum())} of them "
+                f"with an edge, at most {int(gd.max())} edges a row, "
+                f"{sl.plan.fwd.senders.shape[0]} live hop edges; rows up to "
+                f"the last live one per hop {sl.plan.fwd.hop_live}; split "
+                + " / ".join(str(len(x)) for x in g_split) + " graphs")
 
         def collate_ms(loader):
             ts = []
@@ -754,6 +891,15 @@ def main():
         compare_fused("qm9 KPGINPrime k=1 (GINE)", p1, QM9_H, VK=pvk,
                       shape="prime gine")
 
+        # the generated-data shapes: KPGINPlus at D = H (counting K=3
+        # D=96, node property K=6 D=128, graph property K=6 D=96), KPGIN
+        # at D = H/K (TU K=2 D=16)
+        for label, sl in slices.items():
+            compare(f"{label} k={sl.cfg.K}", sl.plan.fwd, sl.plan.bwd, sl.D,
+                    shape=label)
+            compare_fused(f"{label} k={sl.cfg.K}", sl.plan, sl.D,
+                          VK=sl.plan.countsk_hm.shape[2], shape=label)
+
         # determinism: three launches of every variant on one input, each
         # on the CSR where the main path launches it
         fwd, bwd = plan.fwd, plan.bwd
@@ -782,121 +928,116 @@ def main():
             f"{len(variants)} variants")
 
         mark("check")
-        # ---- 3. the main path: train_zinc at full width ----
-        rows = []
-        spmm.reset_launch_counts()
-        t0 = time.perf_counter()
-        mae = train_zinc.main(
-            train_argv(work, os.path.join(work, "save"), "cuda"),
-            epoch_callback=lambda e, m, row: rows.append(row))
-        torch.cuda.synchronize()
-        path_launches = dict(spmm.gather_segment_sum.variant_launches)
-        path_w = Counter(spmm.gather_segment_sum.width_launches)
-        launches = sum(path_launches.values())
-        train_s = time.perf_counter() - t0
-        n_train = math.ceil(N_TRAIN / BATCH)
-        n_eval = math.ceil(N_VAL / BATCH) + math.ceil(N_TEST / BATCH)
-        expect = n_train * 2 * L + n_eval * L
         fused_v = spmm.variant_name(torch.float32, True, True)
         gather_v = spmm.variant_name(torch.float32, True, False)
-        expect_v = {fused_v: (n_train + n_eval) * L, gather_v: n_train * L}
-        check(len(rows) == 1, f"expected one epoch, got {len(rows)}")
-        row = rows[0]
-        losses = np.asarray(row["step_losses"])
-        log(f"[train] 1 epoch in {train_s:.1f} s: {len(losses)} steps, "
-            f"train_loss {row['train_loss']:.5f} val_loss "
-            f"{row['val_loss']:.5f} test MAE {mae:.5f}; kernel launches "
-            f"{launches} (expected {expect}): {path_launches}")
-        check(len(losses) == n_train, f"{len(losses)} train steps")
-        check(np.isfinite(losses).all() and math.isfinite(mae)
-              and math.isfinite(row["val_loss"]), "non-finite loss")
-        check(launches == expect and path_launches == expect_v,
-              f"kernel launches {launches} {path_launches} != {expect} "
-              f"{expect_v} (per train step L fused forward + L gather "
-              f"backward, per eval step L fused forward)")
 
-        def first_step_loss(cfg, batch, device, loss):
+        def first_step_loss(sl, batch, device):
             """The trainer's first-step loss before its update: the model
             initialized from SEED on the CPU, moved to ``device``; this
-            launches no kernel (the CPU takes the plain version, COO has
-            no kernel)."""
-            model = init_parameters(make_model(cfg), SEED).to(device)
+            launches no kernel (the CPU takes the plain version, COO and
+            dense have no kernel)."""
+            model = init_parameters(make_model(sl.cfg), SEED).to(device)
             b = batch.to(device)
             with torch.no_grad():
                 (lsum, cnt), v = launched(spmm, lambda: _masked_loss(
-                    model(b, train=True), b.y, b.graph_mask, loss))
+                    model(b, train=True), b.y,
+                    _batch_target_mask(b, sl.node_level), sl.loss))
             check(not v, f"a first step on {device} launched {v}")
             return float(lsum / cnt)
 
-        def same_first_step(label, got, cfg, kernel_loader, others, loss):
-            """The path's first-step loss against the same step on the CPU
-            (plain version) and on the card on each backend of ``others``
-            ({backend: its loader})."""
-            refs = {"CPU": first_step_loss(cfg, first_batch(kernel_loader),
-                                           "cpu", loss)}
-            for name, loader in others.items():
+        def script_phase(label, sl, backends=("coo", "dense")):
+            """``sl.main(sl.argv)`` on the card: its epochs, finite losses
+            and metrics, per train step L fused forward + L gather backward
+            launches at width sl.D and per eval step L fused (none at
+            L = 0, the dense backend), and its first-step loss equal to the
+            same step on the CPU (plain version) and on the card on each
+            of ``backends`` (rtol 1e-4).  Returns (rows, step losses,
+            launches per variant, per (variant, D))."""
+            rows = []
+            spmm.reset_launch_counts()
+            t0 = time.perf_counter()
+            result = sl.main(sl.argv, epoch_callback=lambda e, m, row:
+                             rows.append(row))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            v = dict(spmm.gather_segment_sum.variant_launches)
+            w = +Counter(spmm.gather_segment_sum.width_launches)
+            losses = np.concatenate([r["step_losses"] for r in rows])
+            n_tr = sl.epochs * sl.train_steps
+            n_ev = sl.epochs * sl.val_steps + sl.test_steps * sum(
+                any(k.startswith("test_") for k in r) for r in rows)
+            expect = ({fused_v: (n_tr + n_ev) * sl.L, gather_v: n_tr * sl.L}
+                      if sl.L else {})
+            log(f"[{label}] {len(rows)} epochs in {secs:.1f} s: {n_tr} train "
+                f"steps, {n_ev} eval steps, train_loss "
+                + ", ".join(f"{r['train_loss']:.5f}" for r in rows) + "; "
+                + ", ".join(f"{k} {x:.5f}" for k, x in rows[-1].items()
+                            if k.startswith(("val_", "test_"))
+                            and isinstance(x, float))
+                + f"; returns {result:.5f}; kernel launches {v} (expected "
+                f"{expect}), by width {dict(w)}")
+            check(len(rows) == sl.epochs and len(losses) == n_tr,
+                  f"{label}: {len(rows)} epochs, {len(losses)} train steps")
+            check(math.isfinite(result) and np.isfinite(losses).all()
+                  and all(math.isfinite(x) for r in rows for x in r.values()
+                          if isinstance(x, float)),
+                  f"{label}: non-finite loss or metric")
+            check(v == expect and set(w) <= {(fused_v, sl.D),
+                                             (gather_v, sl.D)},
+                  f"{label}: kernel launches {v} {dict(w)} != {expect} at "
+                  f"D={sl.D} (per train step L fused forward + L gather "
+                  f"backward, per eval step L fused forward)")
+            refs = {"CPU": first_step_loss(sl, first_batch(
+                sl.loaders["pallas"]), "cpu")}
+            for name in backends:
                 refs[f"--backend {name} on the card"] = first_step_loss(
-                    cfg, first_batch(loader), dev, loss)
-            rel = {k: abs(got - v) / abs(v) for k, v in refs.items()}
+                    sl, first_batch(sl.loaders[name]), dev)
+            got = float(losses[0])
+            rel = {k: abs(got - x) / abs(x) for k, x in refs.items()}
             log(f"[{label}] first-step loss GPU {got:.7f}, " + ", ".join(
-                f"{k} {v:.7f} (rel diff {rel[k]:.2e})"
-                for k, v in refs.items()))
+                f"{k} {x:.7f} (rel diff {rel[k]:.2e})"
+                for k, x in refs.items()))
             check(max(rel.values()) <= 1e-4,
                   f"{label}: first-step loss differs by "
-                  + ", ".join(f"{v:.2e} ({k})" for k, v in rel.items())
+                  + ", ".join(f"{x:.2e} ({k})" for k, x in rel.items())
                   + " > 1e-4")
+            return rows, losses, v, w
 
-        same_first_step("train", losses[0], mcfg, tl,
-                        {"coo": GraphLoader(tl.graphs, BATCH, shuffle=True,
-                                            seed=SEED, mode="coo")}, "l1")
+        # ---- 3. the main path: train_zinc at full width ----
+        zinc = SimpleNamespace(
+            main=train_zinc.main,
+            argv=train_argv(work, os.path.join(work, "save"), "cuda"),
+            cfg=mcfg, loss="l1", node_level=False, L=L, D=H, epochs=1,
+            train_steps=math.ceil(N_TRAIN / BATCH),
+            val_steps=math.ceil(N_VAL / BATCH),
+            test_steps=math.ceil(N_TEST / BATCH),
+            loaders={"pallas": tl, "coo": GraphLoader(
+                tl.graphs, BATCH, shuffle=True, seed=SEED, mode="coo")})
+        path_w = script_phase("train", zinc, ("coo",))[3]
 
         mark("train")
         # ---- 4. the CSL slice: train_csl at the reference width ----
-        rows_c = []
-        spmm.reset_launch_counts()
-        t0 = time.perf_counter()
-        acc = train_csl.main(
-            csl_argv(os.path.join(work, "csl"), "cuda", "pallas"),
-            epoch_callback=lambda e, m, row: rows_c.append(row))
-        torch.cuda.synchronize()
-        csl_launches = dict(spmm.gather_segment_sum.variant_launches)
-        csl_w = Counter(spmm.gather_segment_sum.width_launches)
-        csl_s = time.perf_counter() - t0
-        n_tr = CSL_EPOCHS * math.ceil(len(tr) / CSL_BATCH)
-        n_ev = (CSL_EPOCHS * math.ceil(len(va) / CSL_BATCH)
-                + sum("test_loss" in r for r in rows_c)
-                * math.ceil(len(te) / CSL_BATCH))
-        expect_c = {fused_v: (n_tr + n_ev) * CSL_L, gather_v: n_tr * CSL_L}
-        closses = np.concatenate([r["step_losses"] for r in rows_c])
-        log(f"[csl] {CSL_EPOCHS} epochs of fold 0 in {csl_s:.1f} s: "
-            f"{len(closses)} train steps, {n_ev} eval steps, train_loss "
-            + ", ".join(f"{r['train_loss']:.5f}" for r in rows_c)
-            + ", val_accuracy " + ", ".join(f"{r['val_accuracy']:.3f}"
-                                            for r in rows_c)
-            + f", test accuracy {acc:.3f}; kernel launches {csl_launches} "
-            f"(expected {expect_c})")
-        check(len(rows_c) == CSL_EPOCHS and len(closses) == n_tr,
-              f"{len(rows_c)} epochs, {len(closses)} train steps")
-        check(np.isfinite(closses).all()
-              and all(math.isfinite(r["val_loss"]) for r in rows_c),
-              "csl: non-finite loss")
-        check(csl_launches == expect_c,
-              f"csl kernel launches {csl_launches} != {expect_c} (per train "
-              f"step L fused forward + L gather backward, per eval step L "
-              f"fused forward)")
-        same_first_step("csl", float(closses[0]), cmcfg, ctl,
-                        {"coo": coo_tl}, "cross_entropy")
+        csl = SimpleNamespace(
+            main=train_csl.main,
+            argv=csl_argv(os.path.join(work, "csl"), "cuda", "pallas"),
+            cfg=cmcfg, loss="cross_entropy", node_level=False, L=CSL_L,
+            D=CSL_H // CSL_K, epochs=CSL_EPOCHS,
+            train_steps=math.ceil(len(tr) / CSL_BATCH),
+            val_steps=math.ceil(len(va) / CSL_BATCH),
+            test_steps=math.ceil(len(te) / CSL_BATCH),
+            loaders={"pallas": ctl, "coo": coo_tl})
+        csl_w = script_phase("csl", csl, ("coo",))[3]
 
         mark("csl")
         # ---- 5. the other families, one step at CSL width ----
         cb = cfb.to(dev)
 
-        def step_grads(model, batch, lr, wd, loss):
+        def step_grads(model, batch, lr, wd, loss, node_level=False):
             """(loss, {parameter: grad on the host}, launches) of one
             optimizer step."""
             (lsum, cnt), v = launched(spmm, lambda: train_step(
                 model, make_optimizer(model.parameters(), lr, wd), batch,
-                loss))
+                loss, node_level=node_level))
             return (float(lsum / cnt),
                     {n: None if p.grad is None else p.grad.cpu()
                      for n, p in model.named_parameters()}, v)
@@ -910,7 +1051,8 @@ def main():
                     p.mul_(1.0 + sign.to(p.dtype) * 2.0 ** -23)
             return model
 
-        def gradient_gate(label, name, cfg, loader, hp, loss, expect):
+        def gradient_gate(label, name, cfg, loader, hp, loss, expect,
+                          node_level=False):
             """One step of ``cfg``'s model, initialized from SEED, on the
             card against the same step on the CPU, on ``loader.example()``:
             the loss, every parameter gradient against the CPU step that
@@ -926,16 +1068,18 @@ def main():
             w0 = Counter(spmm.gather_segment_sum.width_launches)
             with relu_branches(torch, card_relu, replay=False):
                 loss_g, grads_g, v_g = step_grads(
-                    fresh().to(dev), batch.to(dev), *hp, loss)
+                    fresh().to(dev), batch.to(dev), *hp, loss, node_level)
             torch.cuda.synchronize()
             w = Counter(spmm.gather_segment_sum.width_launches)
             w.subtract(w0)
-            loss_c, grads_own, v_c = step_grads(fresh(), batch, *hp, loss)
+            loss_c, grads_own, v_c = step_grads(fresh(), batch, *hp, loss,
+                                                node_level)
             with relu_branches(torch, card_relu, replay=True) as flips:
-                _, grads, v_r = step_grads(fresh(), batch, *hp, loss)
+                _, grads, v_r = step_grads(fresh(), batch, *hp, loss,
+                                           node_level)
             with relu_branches(torch, card_relu, replay=True):
                 _, grads_u, _ = step_grads(ulp_moved(fresh()), batch, *hp,
-                                           loss)
+                                           loss, node_level)
             rel = abs(loss_g - loss_c) / abs(loss_c)
             gscale = max(float(g.abs().max()) for g in grads.values()
                          if g is not None)
@@ -1013,50 +1157,16 @@ def main():
 
         mark("families")
         # ---- 6. the QM9 slice: train_qm9 at the canonical width ----
-        n_qtr = QM9_EPOCHS * math.ceil(len(qtrain) / QM9_BATCH)
         n_qeval = math.ceil(QM9_MOLECULES // 10 / QM9_BATCH)   # val or test
-
-        def qm9_run(label, backend, extra):
-            """train_qm9.main on the card: (rows, step losses, test MAE,
-            launches per variant, launches per (variant, D))."""
-            rows = []
-            spmm.reset_launch_counts()
-            t0 = time.perf_counter()
-            mae = train_qm9.main(
-                qm9_argv(work, os.path.join(work, "qm9"), "cuda", backend,
-                         extra),
-                epoch_callback=lambda e, m, row: rows.append(row))
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            v = dict(spmm.gather_segment_sum.variant_launches)
-            w = Counter(spmm.gather_segment_sum.width_launches)
-            qlosses = np.concatenate([r["step_losses"] for r in rows])
-            log(f"[{label}] {len(rows)} epochs in {secs:.1f} s: "
-                f"{len(qlosses)} train steps, train_loss "
-                + ", ".join(f"{r['train_loss']:.5f}" for r in rows)
-                + ", val_mae " + ", ".join(f"{r['val_mae']:.5f}"
-                                           for r in rows)
-                + f", test MAE {mae:.5f}; kernel launches {v}")
-            check(len(rows) == QM9_EPOCHS and len(qlosses) == n_qtr,
-                  f"{label}: {len(rows)} epochs, {len(qlosses)} train steps")
-            check(np.isfinite(qlosses).all() and math.isfinite(mae)
-                  and all(math.isfinite(r["val_loss"])
-                          and math.isfinite(r["val_mae"]) for r in rows),
-                  f"{label}: non-finite loss or MAE")
-            return rows, qlosses, mae, v, w
-
-        rows_q, qlosses, _, qm9_launches, qm9_w = qm9_run(
-            "qm9", "pallas", QM9_VN_RD)
-        n_qev = n_qeval * (QM9_EPOCHS + sum("test_loss" in r for r in rows_q))
-        expect_q = {fused_v: (n_qtr + n_qev) * QM9_L, gather_v: n_qtr * QM9_L}
-        check(qm9_launches == expect_q and set(qm9_w) == {
-            (fused_v, QM9_H), (gather_v, QM9_H)},
-              f"qm9 kernel launches {qm9_launches} {dict(qm9_w)} != "
-              f"{expect_q} at D={QM9_H} (per train step L fused forward + L "
-              f"gather backward, per eval step L fused forward)")
-        same_first_step("qm9", float(qlosses[0]), qmcfg, qloaders["pallas"],
-                        {"coo": qloaders["coo"],
-                         "dense": qloaders["dense"]}, "mse")
+        qm9 = SimpleNamespace(
+            main=train_qm9.main,
+            argv=qm9_argv(work, os.path.join(work, "qm9"), "cuda", "pallas",
+                          QM9_VN_RD),
+            cfg=qmcfg, loss="mse", node_level=False, L=QM9_L, D=QM9_H,
+            epochs=QM9_EPOCHS,
+            train_steps=math.ceil(len(qtrain) / QM9_BATCH),
+            val_steps=n_qeval, test_steps=n_qeval, loaders=qloaders)
+        _, qlosses, _, qm9_w = script_phase("qm9", qm9)
         qm9_w.update(gradient_gate(
             "qm9", f"KPGINPlus K={QM9_K} L={QM9_L} vn+rd", qmcfg,
             qloaders["pallas"], (qargs.lr, qargs.l2_wd), "mse",
@@ -1064,12 +1174,13 @@ def main():
 
         mark("qm9")
         # ---- 7. the dense backend end to end, and KPGINPrime at K=16 ----
-        _, dlosses, _, dense_launches, _ = qm9_run(
-            "dense", "coo", QM9_VN_RD + ("--dense",))
+        qm9_dense = SimpleNamespace(**dict(vars(qm9), L=0, argv=qm9_argv(
+            work, os.path.join(work, "qm9"), "cuda", "coo",
+            QM9_VN_RD + ("--dense",))))
+        _, dlosses, _, _ = script_phase("dense", qm9_dense, ())
         rel = abs(dlosses[0] - qlosses[0]) / abs(qlosses[0])
         log(f"[dense] first-step loss {dlosses[0]:.7f}, the pallas run's "
             f"{qlosses[0]:.7f} (rel diff {rel:.2e})")
-        check(not dense_launches, f"the dense run launched {dense_launches}")
         check(rel <= 1e-4, f"dense: first-step loss differs by {rel:.2e} "
               f"from the pallas run's > 1e-4")
         pd = QM9_H // PRIME_K
@@ -1085,7 +1196,18 @@ def main():
               f"(one K-hop layer at D={pd}, then GINE at D={QM9_H})")
 
         mark("dense and KPGINPrime")
-        # ---- 8. times, on the flagship k=8 plan ----
+        # ---- 8. the generated-data scripts at their canonical widths ----
+        gen_w = {}
+        for label, sl in slices.items():
+            gen_w[label] = script_phase(label, sl)[3]
+        sl = slices["nprop"]
+        gen_w["nprop"].update(gradient_gate(
+            "nprop", f"KPGINPlus K={sl.cfg.K} L={sl.L} node regression",
+            sl.cfg, sl.loaders["pallas"], (sl.args.lr, sl.args.l2_wd),
+            sl.loss, {fused_v: sl.L, gather_v: sl.L}, node_level=True))
+
+        mark("generated")
+        # ---- 9. times, on the flagship k=8 plan ----
         def sparse(c, dtype):
             n_e = c.senders.shape[0]
             return torch.sparse_csr_tensor(
@@ -1263,6 +1385,29 @@ def main():
                 f"union edges, batch {QM9_BATCH})")
             profile_step(torch, qm9_step, qstep_ms, label)
         mark("time qm9")
+        # ---- the same times at the generated-data shapes ----
+        gen_t = {label: shape_times(sl.plan, sl.D, f"{label} k={sl.cfg.K}",
+                                    sl.plan.countsk_hm.shape[2])[2]
+                 for label, sl in slices.items()}
+        # the node-property train step on one fixed batch
+        sl = slices["nprop"]
+        nmodel = init_parameters(make_model(sl.cfg), SEED).to(dev)
+        nopt = make_optimizer(nmodel.parameters(), sl.args.lr,
+                              sl.args.l2_wd)
+        nb = sl.batch.to(dev)
+
+        def nprop_step():
+            return train_step(nmodel, nopt, nb, "mse", node_level=True)
+        _, v = launched(spmm, nprop_step)
+        check(v == {fused_v: sl.L, gather_v: sl.L},
+              f"the node-property train step launched {v}")
+        nstep_ms = host_step_ms(torch, nprop_step)
+        log(f"[time] nprop train step {nstep_ms:.2f} ms, "
+            f"{sl.union / nstep_ms / 1e3:.3f}M union edges/s ({sl.union} "
+            f"union edges, {int(sl.batch.node_mask.sum())} nodes, batch "
+            f"{sl.args.batch_size})")
+        profile_step(torch, nprop_step, nstep_ms, "nprop")
+        mark("time generated")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1272,7 +1417,8 @@ def main():
     # widths are all distinct, and of the QM9 run and KPGINPrime step
     zinc_csl_w = path_w + csl_w + fam_w
     all_launches = Counter()
-    for (vname, _), n in (zinc_csl_w + qm9_w + prime_w).items():
+    for (vname, _), n in sum(gen_w.values(),
+                             zinc_csl_w + qm9_w + prime_w).items():
         all_launches[vname] += n
     # the main path's shapes, each timed on the CSR where it launches:
     # (name suffix, label, D, error key, fused times, gather times,
@@ -1290,6 +1436,9 @@ def main():
               (" qm9 KPGINPrime GINE", "qm9 KPGINPrime k=1 slice (GINE)",
                QM9_H, "prime gine", pgt[fused_v, "fwd"],
                pgt[gather_v, "bwd"], prime_w)]
+    shapes += [(f" {label}", f"{label} k={sl.cfg.K} plan", sl.D, label,
+                gen_t[label][fused_v, "fwd"], gen_t[label][gather_v, "bwd"],
+                gen_w[label]) for label, sl in slices.items()]
     check(set(zinc_csl_w) <= {(v, s[2]) for s in shapes[:3]
                               for v in (fused_v, gather_v)},
           f"the paths launched {dict(zinc_csl_w)}, outside the timed widths")

@@ -1,8 +1,8 @@
 """Typed model configuration and the model factory (counterpart of
 kpgnn_tpu/models/factory.py).  Every family of ``MODEL_NAMES`` builds:
 KPGINPlus on GNNPlus, KPGINPrime on GNNPrime, KPGCN, KPGIN and
-KPGraphSAGE on GNN.  The node heads and bf16 compute are not ported yet
-and raise."""
+KPGraphSAGE on GNN, under each of the four task heads.  bf16 compute is
+not ported yet and raises."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,7 +14,8 @@ from ..nn.encoders import (EmbeddingEncoder, LinearEncoder,
                            QM9InputEncoder)
 from ..nn.layers import make_gnn_layer
 from .backbones import GNN, GNNPlus, GNNPrime
-from .heads import GraphClassification, GraphRegression
+from .heads import (GraphClassification, GraphRegression,
+                    NodeClassification, NodeRegression)
 
 MODEL_NAMES = ("KPGCN", "KPGIN", "KPGraphSAGE", "KPGINPlus", "KPGINPrime")
 TASKS = ("graph_classification", "graph_regression",
@@ -91,7 +92,7 @@ def _make_encoder(cfg: ModelConfig) -> nn.Module:
 
 
 def make_model(cfg: ModelConfig) -> nn.Module:
-    """Encoder -> KP layers -> backbone -> graph head.  Parameters are
+    """Encoder -> KP layers -> backbone -> task head.  Parameters are
     uninitialized until ``nn.inits.init_parameters(model, seed)``.  As in
     the JAX factory, ``cfg.eps`` reaches no layer: GIN layers start from
     eps 0 (a parameter with ``train_eps``)."""
@@ -124,4 +125,6 @@ def make_model(cfg: ModelConfig) -> nn.Module:
     if cfg.task == "graph_regression":
         return GraphRegression(backbone, cfg.pooling_method,
                                cfg.hidden_size, cfg.output_size)
-    raise _not_ported(f"the {cfg.task} head")
+    if cfg.task == "node_classification":
+        return NodeClassification(backbone, cfg.hidden_size, cfg.output_size)
+    return NodeRegression(backbone, cfg.hidden_size, cfg.output_size)

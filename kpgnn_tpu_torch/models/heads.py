@@ -1,5 +1,6 @@
-"""Task heads: masked pooling + linear readout (counterpart of
-kpgnn_tpu/models/heads.py; the node-level heads are not ported yet)."""
+"""Task heads (counterpart of kpgnn_tpu/models/heads.py): the graph
+heads pool the nodes under the mask and read out per graph; the node
+heads read out every node slot, the loss masks the padding."""
 from __future__ import annotations
 
 from typing import Optional
@@ -64,4 +65,34 @@ class GraphRegression(_GraphHead):
     def forward(self, batch: GraphBatch, train: bool = False,
                 generator: Optional[torch.Generator] = None):
         out = self.regressor(self.pooled(batch, train, generator))
+        return out[:, 0] if self.output_size == 1 else out
+
+
+class _NodeHead(nn.Module):
+    readout = "regressor"
+
+    def __init__(self, embedding_model: nn.Module, hidden_size: int,
+                 output_size: int = 1):
+        super().__init__()
+        self.embedding_model = embedding_model
+        self.output_size = output_size
+        self.add_module(self.readout, TorchLinear(hidden_size, output_size))
+
+    def node_out(self, batch, train, generator):
+        x = self.embedding_model(batch, train=train, generator=generator)
+        return getattr(self, self.readout)(x)
+
+
+class NodeClassification(_NodeHead):
+    readout = "classifier"
+
+    def forward(self, batch: GraphBatch, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        return self.node_out(batch, train, generator)
+
+
+class NodeRegression(_NodeHead):
+    def forward(self, batch: GraphBatch, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        out = self.node_out(batch, train, generator)
         return out[:, 0] if self.output_size == 1 else out

@@ -20,13 +20,15 @@ from __future__ import annotations
 import argparse
 import json
 import os
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
-from ..models.factory import ModelConfig
+from ..models.factory import ModelConfig, make_model
 from ..prep.khop import KHopConfig, apply_ablation_clamps, extract_graphs
 from ..train.config import TrainConfig
+from ..train.loader import GraphLoader
+from ..train.loop import Trainer
 from ..utils.logging import get_logger, get_save_dir
 
 
@@ -255,3 +257,28 @@ def loader_kwargs(args, mcfg: ModelConfig) -> dict:
                          "--backend coo or dense")
     return {"mode": mode, "v1": mcfg.num_hop1_edge + 2,
             "vk": mcfg.max_pe_num + 2}
+
+
+def fit_runs(args, splits, mcfg: ModelConfig, loss: str, logger,
+             node_level: bool = False, epoch_callback=None) -> List[dict]:
+    """``args.runs`` runs of the plateau-scheduled trainer (gated on the
+    validation loss, stopping at min_lr) on the prepped ``splits``
+    ({"train", "val", "test"}); run r shuffles and initializes from
+    ``args.seed + r``.  Returns each run's best-val test metrics."""
+    lk = loader_kwargs(args, mcfg)
+    results = []
+    for run in range(args.runs):
+        tl = GraphLoader(splits["train"], args.batch_size, shuffle=True,
+                         seed=args.seed + run, y_is_node_level=node_level,
+                         **lk)
+        vl, el = (GraphLoader(splits[k], args.batch_size,
+                              y_is_node_level=node_level, **lk)
+                  for k in ("val", "test"))
+        trainer = Trainer(make_model(mcfg),
+                          train_config(args, loss, stop_at_min_lr=True),
+                          loss=loss, node_level=node_level, logger=logger,
+                          device=args.device)
+        _, res = trainer.fit(tl, vl, el, seed=args.seed + run,
+                             epoch_callback=epoch_callback)
+        results.append(res["best_test"])
+    return results

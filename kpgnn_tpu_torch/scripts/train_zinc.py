@@ -17,11 +17,8 @@ import os
 import numpy as np
 
 from ..data.molecules import load_zinc
-from ..models.factory import make_model
-from ..train.loader import GraphLoader
-from ..train.loop import Trainer, resolve_device
-from .common import (base_parser, loader_kwargs, model_config, prepare,
-                     setup_run, train_config)
+from ..train.loop import resolve_device
+from .common import base_parser, fit_runs, model_config, prepare, setup_run
 
 
 def parser():
@@ -48,23 +45,11 @@ def main(argv=None, epoch_callback=None):
     prepped = {k: prepare(v, args) for k, v in splits.items()}
     mcfg = model_config(args, input_encoder=("embedding", 21),
                         task="graph_regression", output_size=1)
-    lk = loader_kwargs(args, mcfg)
-
     maes = []
-    for run in range(args.runs):
-        tl = GraphLoader(prepped["train"], args.batch_size, shuffle=True,
-                         seed=args.seed + run, **lk)
-        vl = GraphLoader(prepped["val"], args.batch_size, **lk)
-        el = GraphLoader(prepped["test"], args.batch_size, **lk)
-        trainer = Trainer(make_model(mcfg),
-                          train_config(args, "l1", stop_at_min_lr=True),
-                          loss="l1", logger=logger,
-                          device=args.device)
-        _, res = trainer.fit(tl, vl, el, seed=args.seed + run,
-                             epoch_callback=epoch_callback)
-        mae = res["best_test"].get("loss", float("nan"))
-        maes.append(mae)
-        logger.info(f"run {run}: test MAE {mae:.5f}")
+    for run, best in enumerate(fit_runs(args, prepped, mcfg, "l1", logger,
+                                        epoch_callback=epoch_callback)):
+        maes.append(best.get("loss", float("nan")))
+        logger.info(f"run {run}: test MAE {maes[-1]:.5f}")
     logger.info(f"ZINC test MAE: {np.mean(maes):.5f} +- {np.std(maes):.5f}")
     return float(np.mean(maes))
 

@@ -55,12 +55,20 @@ def _masked_loss(pred, y, mask, loss: str):
     return (item * m).sum(), m.sum()
 
 
+def _batch_target_mask(batch: GraphBatch, node_level: bool):
+    return batch.node_mask if node_level else batch.graph_mask
+
+
 def train_step(model, opt, batch: GraphBatch, loss: str = "l1",
-               generator: Optional[torch.Generator] = None
+               generator: Optional[torch.Generator] = None,
+               node_level: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One optimizer step; returns (loss sum, count) as device tensors."""
+    """One optimizer step; returns (loss sum, count) as device tensors.
+    ``node_level`` targets are counted over the real nodes, others over
+    the real graphs."""
     pred = model(batch, train=True, generator=generator)
-    lsum, cnt = _masked_loss(pred, batch.y, batch.graph_mask, loss)
+    lsum, cnt = _masked_loss(pred, batch.y,
+                             _batch_target_mask(batch, node_level), loss)
     opt.zero_grad(set_to_none=True)
     (lsum / torch.clamp(cnt, min=1.0)).backward()
     opt.step()
@@ -69,15 +77,17 @@ def train_step(model, opt, batch: GraphBatch, loss: str = "l1",
 
 @torch.no_grad()
 def eval_step(model, batch: GraphBatch, loss: str = "l1",
-              metric: str = "same") -> Dict[str, torch.Tensor]:
+              metric: str = "same", node_level: bool = False
+              ) -> Dict[str, torch.Tensor]:
     """Sums of one batch as device tensors, for exact epoch aggregation:
-    ``loss_sum`` and ``count``; ``correct`` (real graphs whose argmax is
+    ``loss_sum`` and ``count``; ``correct`` (real items whose argmax is
     the label) for accuracy or cross entropy; ``mae_sum`` / ``mse_sum``
-    when ``metric`` asks for an error the loss is not; and, for a 2-D y
-    under an l1 or mse loss, ``abs_per_target``.  ``metric`` is "same"
-    (the loss), "mae", "mse" or "accuracy"."""
+    when ``metric`` asks for an error the loss is not; and, for a 2-D
+    graph-level y under an l1 or mse loss, ``abs_per_target``.  ``metric``
+    is "same" (the loss), "mae", "mse" or "accuracy"; the items are the
+    real nodes under ``node_level``, else the real graphs."""
     pred = model(batch, train=False)
-    mask = batch.graph_mask
+    mask = _batch_target_mask(batch, node_level)
     lsum, cnt = _masked_loss(pred, batch.y, mask, loss)
     out = {"loss_sum": lsum, "count": cnt}
     which = loss if metric == "same" else metric
@@ -87,7 +97,8 @@ def eval_step(model, batch: GraphBatch, loss: str = "l1",
         out["mae_sum"] = _masked_loss(pred, batch.y, mask, "l1")[0]
     if which == "mse" and loss != "mse":
         out["mse_sum"] = _masked_loss(pred, batch.y, mask, "mse")[0]
-    if batch.y is not None and batch.y.dim() == 2 and loss in ("l1", "mse"):
+    if (not node_level and batch.y is not None and batch.y.dim() == 2
+            and loss in ("l1", "mse")):
         m = mask.to(pred.dtype)[:, None]
         out["abs_per_target"] = ((pred.float() - batch.y.float()).abs()
                                  * m).sum(0)
@@ -95,14 +106,15 @@ def eval_step(model, batch: GraphBatch, loss: str = "l1",
 
 
 def train_epoch(model, opt, batches, loss: str = "l1",
-                generator: Optional[torch.Generator] = None
-                ) -> Tuple[float, np.ndarray]:
+                generator: Optional[torch.Generator] = None,
+                node_level: bool = False) -> Tuple[float, np.ndarray]:
     """Mean train loss of one epoch and the per-step losses.  Step
     results stay on the device until the epoch ends (one sync)."""
     sums: List[torch.Tensor] = []
     counts: List[torch.Tensor] = []
     for batch in batches:
-        lsum, cnt = train_step(model, opt, batch, loss, generator)
+        lsum, cnt = train_step(model, opt, batch, loss, generator,
+                               node_level)
         sums.append(lsum)
         counts.append(cnt)
     if not sums:
@@ -112,11 +124,12 @@ def train_epoch(model, opt, batches, loss: str = "l1",
     return float(s.sum() / max(c.sum(), 1.0)), s / np.maximum(c, 1.0)
 
 
-def evaluate(model, batches, loss: str = "l1", metric: str = "same"
-             ) -> Dict[str, float]:
-    """The epoch metrics over the real graphs of all batches
-    (``summarize_eval_sums``), with one host sync."""
-    steps = [eval_step(model, b, loss, metric) for b in batches]
+def evaluate(model, batches, loss: str = "l1", metric: str = "same",
+             node_level: bool = False) -> Dict[str, float]:
+    """The epoch metrics over the real graphs (nodes, under
+    ``node_level``) of all batches (``summarize_eval_sums``), with one
+    host sync."""
+    steps = [eval_step(model, b, loss, metric, node_level) for b in batches]
     sums = {k: torch.stack([s[k] for s in steps]).double().sum(0).cpu()
             .numpy() for k in steps[0]}
     return summarize_eval_sums(sums)
@@ -146,11 +159,13 @@ class Trainer:
     expressiveness scripts do.  The plateau schedule is ported in "min"
     mode only, so "max" requires ``use_scheduler=False``.
     ``eval_metric`` adds an error to every evaluation (``evaluate``'s
-    ``metric``: QM9 trains on MSE and reports the MAE)."""
+    ``metric``: QM9 trains on MSE and reports the MAE).  ``node_level``
+    takes the loss and metrics over the real nodes (node heads)."""
 
     model: torch.nn.Module
     cfg: TrainConfig
     loss: str = "l1"
+    node_level: bool = False
     metric_mode: str = "min"
     use_scheduler: bool = True
     eval_metric: str = "same"
@@ -191,7 +206,7 @@ class Trainer:
             if id(loader) not in cached:        # eval batches stay resident
                 cached[id(loader)] = list(on_device(loader))
             return evaluate(model, cached[id(loader)], self.loss,
-                            self.eval_metric)
+                            self.eval_metric, self.node_level)
 
         sched = ReduceLROnPlateau(factor=self.cfg.factor,
                                   patience=self.cfg.patience,
@@ -208,7 +223,7 @@ class Trainer:
                 t0 = time.time()
                 train_loss, step_losses = train_epoch(
                     model, opt, on_device(train_loader), self.loss,
-                    generator)
+                    generator, self.node_level)
                 row = {"epoch": epoch, "train_loss": train_loss,
                        "lr": get_lr(opt), "seconds": time.time() - t0,
                        "step_losses": step_losses}

@@ -1,10 +1,12 @@
-"""Learning-rate control driven by the epoch's validation loss
-(counterpart of kpgnn_tpu/train/lr.py; step decay is not ported yet).
+"""Learning-rate control between epochs (counterpart of
+kpgnn_tpu/train/lr.py).
 
 ReduceLROnPlateau mirrors torch's semantics used by the reference
 (reference: train_ZINC.py:245-252): factor, patience in epochs, floor at
-min_lr, in "min" mode.  It is host-side: the trainer writes the returned
-lr into the optimizer's param groups between epochs.
+min_lr, in "min" mode, driven by the epoch's validation loss.  StepDecay
+is the TU script's schedule, the LR times ``factor`` every ``every``
+epochs (reference: train_TU.py:119-121).  Both are host-side: the caller
+writes the returned lr into the optimizer's param groups between epochs.
 """
 from __future__ import annotations
 
@@ -32,3 +34,12 @@ class ReduceLROnPlateau:
             self.num_bad = 0
             return max(lr * self.factor, self.min_lr)
         return lr
+
+
+@dataclasses.dataclass
+class StepDecay:
+    every: int = 50
+    factor: float = 0.5
+
+    def lr_at(self, base_lr: float, epoch: int) -> float:
+        return base_lr * (self.factor ** (epoch // self.every))

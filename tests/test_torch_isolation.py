@@ -1,5 +1,7 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its entry points never fall back to the CPU silently."""
+"""The port stands alone: it imports neither JAX nor the JAX package nor
+networkx (the H100 machine has no networkx; the graph families are the
+port's own copies), and its entry points never fall back to the CPU
+silently."""
 import ast
 import os
 import subprocess
@@ -10,7 +12,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "kpgnn_tpu_torch")
-BANNED = ("jax", "jaxlib", "flax", "optax", "kpgnn_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "kpgnn_tpu", "networkx")
 
 
 def port_sources():
@@ -88,6 +90,43 @@ def test_isolation_checks_cover_the_qm9_and_dense_modules():
     from kpgnn_tpu_torch.ops.adjacency import DenseAdj
     assert QM9_CONVERSION.shape == (19,) and DenseAdj.__module__.startswith(
         "kpgnn_tpu_torch.")
+
+
+@pytest.mark.parametrize("script,argv", [
+    ("train_counting", ["--n_graphs", "20"]),
+    ("train_graph_property", ["--data_scale", "0.02"]),
+    ("train_node_property", ["--data_scale", "0.02"]),
+    ("train_tu", ["--dataset_name", "NOWHERE"])])
+def test_generated_data_scripts_without_cuda_raise(tmp_path, script, argv):
+    """The default device is cuda: without CUDA each script raises before
+    it generates, loads or writes anything; --device cpu runs."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    import importlib
+    mod = importlib.import_module(f"kpgnn_tpu_torch.scripts.{script}")
+    for backend in ("pallas", "coo", "dense"):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            mod.main(argv + ["--save_dir", str(tmp_path / "s"),
+                             "--dataset_dir", str(tmp_path), "--backend",
+                             backend])
+    assert not (tmp_path / "s").exists()
+
+
+def test_isolation_checks_cover_the_generated_data_modules():
+    """The generators, oracles, TU parsers, node heads and the four new
+    scripts are among the sources both isolation checks read and
+    import."""
+    sources = {os.path.relpath(p, REPO) for p in port_sources()}
+    for mod in ("data/generation.py", "data/algorithms.py",
+                "data/counting.py", "data/property.py", "data/tu.py",
+                "models/heads.py", "train/lr.py", "scripts/train_counting.py",
+                "scripts/train_graph_property.py",
+                "scripts/train_node_property.py", "scripts/train_tu.py"):
+        assert os.path.join("kpgnn_tpu_torch", mod) in sources, mod
+    from kpgnn_tpu_torch.data.generation import generate_graph
+    from kpgnn_tpu_torch.models.heads import NodeRegression
+    assert generate_graph.__module__ == "kpgnn_tpu_torch.data.generation"
+    assert NodeRegression.__module__.startswith("kpgnn_tpu_torch.")
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
