@@ -6,7 +6,12 @@
 Phases, each of which fails the run loudly:
   1. build  — compile every CUDA kernel of the main path from this
      checkout's sources (csrc/, nvcc for sm_90a); print the card, its power
-     limit, each source's build hash and the build seconds;
+     limit, each source's build hash and the build seconds.  Then the
+     native prep: build ``prep/_native/khop_native.cpp`` with g++ (fails
+     if it does not build), print its source hash and build seconds, and
+     prep the flagship fixture's train split through ``common.prepare``
+     twice (the second call must be a cache hit returning equal graphs)
+     and once on the numpy path (equal graphs), with the three times;
   2. check  — hold each kernel variant against its plain PyTorch version on
      the card, forward and autograd backward.  The gather: flagship plans
      (64 ZINC-shaped molecules, K=8, D=104, every hop prefix k=1..8) and
@@ -26,7 +31,28 @@ Phases, each of which fails the run loudly:
      exactly 2*L kernel launches per train step (L fused forward, L
      gather backward) plus L per eval step, and a first-step loss equal to
      the same step on the CPU and to the same step on --backend coo on the
-     card;
+     card.  Then ``--bf16`` on the same run: finite losses, exactly 2*L
+     launches per train step and L per eval step, all on the kernel's
+     bf16 16-byte variants, a first-step loss within rtol BF16_RTOL of
+     the same bf16 step on the CPU and on --backend coo --bf16 on the
+     card and within 5e-2 of the f32 run's, and f32 parameters and norm
+     statistics after it; in one bf16 train step every linear map and
+     LSTM of the K-hop layers returns bf16, and its profile shows
+     cuDNN's bf16 LSTM kernels and a bf16 GEMM.  Then resident epochs,
+     one epoch each under deterministic algorithms: ``--backend coo``
+     (``--resident auto``: the log shows the rule's decision, which must be
+     ``resident_rule``'s), ``--resident off`` and ``--resident on``;
+     ``--dense`` (auto, resident) and ``--dense --resident off`` twice.
+     The resident run's step losses equal the per-batch run's within rtol
+     1e-4 over every step where the batches are the same (dense) and the
+     per-batch run repeats itself bit for bit, else over the first step;
+     COO's slot layout sums in another order, so its first batch gathered
+     from the store is held against the collated one by loss and every
+     graph's prediction (rtol 1e-5) and by every gradient under the
+     gradient gate (below), the collated steps replaying the gathered
+     step's ReLU branches on the real nodes; each epoch's seconds, and
+     one step's time, launches and idle share resident against per batch
+     on each store (without deterministic algorithms);
   4. csl    — run ``kpgnn_tpu_torch.scripts.train_csl.main`` at the
      reference width (KPGIN on GNN, K=4 L=4 H=48, batch 64, --backend
      pallas, fold 0 of the 10-fold split, 2 epochs): finite losses,
@@ -72,7 +98,9 @@ Phases, each of which fails the run loudly:
      node-property config against the CPU under the gradient gate (the
      node head and the node-level loss).  The kernel is checked at their
      shapes (K=3 D=96, K=6 D=128, K=6 D=96, K=2 D=16, each over its
-     first batch's plan) in phase 2;
+     first batch's plan) in phase 2.  TU's fold with --dense takes the
+     resident path and is gated against the same fold with --resident
+     off as the flagship's dense runs are;
   9. time   — on the flagship k=8 plan (CUDA events, after warm-up,
      rotating distinct inputs), each beside the least time the card could
      take: every kernel variant on the CSR where the main path launches it
@@ -86,7 +114,9 @@ Phases, each of which fails the run loudly:
      weighted histograms, K GEMMs, receiver scale) at D=12, the host's
      collate time per CSL batch, and the CSL train step with its profile;
      the kernel times at the QM9 shapes, and the QM9 train step on pallas
-     and on dense, each with its profile; the kernel times at the four
+     and on dense, each with its profile (the pallas step must spend
+     under 1 ms in ``indexing_backward_kernel``: the virtual node's
+     broadcast no longer serialises); the kernel times at the four
      generated-data shapes, and the node-property train step with its
      profile.
 The last lines are the card's name and power limit, a ``kernels`` JSON
@@ -98,7 +128,8 @@ over its hop-1 slice, QM9's D=128 over the k=8 plan, KPGINPrime-QM9's D=8
 over the k=16 plan and D=128 over its hop-1 slice, counting's D=96 over
 the k=3 plan, node property's D=128 and graph property's D=96 over
 their k=6 plans, TU's D=16 over the k=2 plan), each with the launches
-of the run that takes that shape, its error, times and bound.
+of the run that takes that shape, its error, times and bound; and the
+bf16 variants on the flagship plan with the --bf16 run's launches.
 
 Tolerances: f32 gather vs plain version atol 1e-5, except the hub row,
 whose 10k-term sums may differ in summation order by up to 1e-6 of the
@@ -108,7 +139,8 @@ the plain version per edge pair); the table gradients, sums over the n
 rows of the counts (a matmul against an atomic scatter in varying
 order), 1e-5 plus 2*sqrt(n)*2**-24 of their sum of |terms|, the
 probabilistic bound of f32 summation error; bf16 input vs the plain
-version on the same bf16 values, both summed in f32, rtol 1e-3; first
+version on the same bf16 values, both summed in f32, rtol 1e-3 (its
+backward gathers the gradient in bf16, as the --bf16 path does); first
 train-step loss GPU vs CPU, and kernel vs COO backend on the card, rtol
 1e-4 (on the card the COO backend's index_add_ sums with atomics, in an
 order that varies from run to run, so neither side is bitwise fixed);
@@ -142,6 +174,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from collections import Counter
 from types import SimpleNamespace
 
@@ -168,6 +201,10 @@ GENERATED = {
     "tu": ("train_tu", ("--folds", "1", "--drop_prob", "0"),
            "cross_entropy", False),
 }
+# first-step loss, --bf16 on the card against the same bf16 step on the
+# CPU and on --backend coo on the card: bf16 keeps 8 mantissa bits and
+# each side rounds after its own summation order
+BF16_RTOL = 1e-2
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM data sheet, f32 outside the MMA
 KERNEL = dict(route="cuda",
@@ -311,16 +348,50 @@ def csl_argv(save_dir, device, backend, model_name="KPGIN", extra=()):
             "--seed", str(SEED), *extra]
 
 
-def first_batch(loader):
-    """The first batch a (shuffled) loader yields, leaving its shuffle
-    where it was: every call gives the batch the loader's next epoch
-    starts with."""
+def first_batches(loader, n):
+    """The first ``n`` batches a (shuffled) loader yields, leaving its
+    shuffle where it was: every call gives the batches the loader's next
+    epoch starts with."""
     state = loader.rng.bit_generator.state
     it = iter(loader)
-    batch = next(it)
+    batches = [next(it) for _ in range(n)]
     it.close()
     loader.rng.bit_generator.state = state
-    return batch
+    return batches
+
+
+def first_batch(loader):
+    """The first batch of ``first_batches``."""
+    return first_batches(loader, 1)[0]
+
+
+def same_graphs(a, b):
+    """Whether two lists of prepped graphs hold equal fields (arrays of
+    equal dtype and values)."""
+    import dataclasses
+    import numpy as np
+    if len(a) != len(b):
+        return False
+    for ga, gb in zip(a, b):
+        for f in dataclasses.fields(ga):
+            x, y = getattr(ga, f.name), getattr(gb, f.name)
+            if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+                if not (isinstance(x, np.ndarray) and isinstance(y, np.ndarray)
+                        and x.dtype == y.dtype and np.array_equal(x, y)):
+                    return False
+            elif x != y:
+                return False
+    return True
+
+
+def run_log(save_base):
+    """The log of the newest run under ``save_base`` (a script's
+    ``--save_dir``; each run logs to <save_base>/train/<name>-NN/)."""
+    import glob
+    logs = glob.glob(os.path.join(save_base, "train", "*", "log.txt"))
+    check(bool(logs), f"no run log under {save_base}")
+    with open(max(logs, key=os.path.getmtime)) as f:
+        return f.read()
 
 
 def kernel_bound_ms(csr, D, x_bytes, fused=False):
@@ -371,17 +442,25 @@ def launched(spmm, fn):
 
 
 @contextlib.contextmanager
-def relu_branches(torch, inputs, replay):
+def relu_branches(torch, inputs, replay, layouts=None):
     """Within the block, every ``F.relu`` call of the model records its
     input on the host into ``inputs`` (``replay`` False), or (``replay``
     True) takes the branch that the input of the same call in ``inputs``
     took: relu(x) becomes where(inputs[i] > 0, x, 0), gradient included.
-    ReLU is the one branch point of the gated models.  Yields, per call
-    replayed, (inputs whose own sign differs from the recorded one,
-    largest |x| or recorded |x| among them, largest |x| of the call)."""
+    ReLU is the one branch point of the gated models.  ``layouts`` (the
+    recorded run's node mask, this run's node mask) replays a run that
+    lays the same real nodes out in other rows, in the same order: each
+    call's real rows take the recorded branches, its padded rows keep
+    their own.  Yields, per call replayed, (inputs whose own sign differs
+    from the recorded one, largest |x| or recorded |x| among them,
+    largest |x| of the call)."""
     F = torch.nn.functional
     relu = F.relu
     flips = []
+    if layouts is not None:
+        src, dst = (torch.nonzero(m)[:, 0] for m in layouts)
+        check(len(src) == len(dst), f"the layouts hold {len(src)} and "
+              f"{len(dst)} real nodes")
 
     def recording(x, inplace=False):
         inputs.append(x.detach().float().cpu())
@@ -389,12 +468,23 @@ def relu_branches(torch, inputs, replay):
 
     def replaying(x, inplace=False):
         i = len(flips)
-        check(i < len(inputs) and inputs[i].shape == x.shape,
-              f"ReLU call {i} {tuple(x.shape)} is not the recorded step's")
-        keep = (inputs[i] > 0).to(x.device)
         xd = x.detach().float()
+        rec = inputs[i] if i < len(inputs) else None
+        if layouts is None:
+            check(rec is not None and rec.shape == x.shape,
+                  f"ReLU call {i} {tuple(x.shape)} is not the recorded step's")
+            ref = rec.to(x.device)
+        else:
+            check(rec is not None and rec.shape[1:] == x.shape[1:]
+                  and rec.shape[0] == len(layouts[0])
+                  and x.shape[0] == len(layouts[1]),
+                  f"ReLU call {i} {tuple(x.shape)} is not a node-level call "
+                  f"of the recorded step's")
+            ref = xd.clone()
+            ref[dst.to(x.device)] = rec[src].to(x.device)
+        keep = ref > 0
         other = keep != (xd > 0)
-        mag = torch.maximum(xd.abs(), inputs[i].to(x.device).abs())[other]
+        mag = torch.maximum(xd.abs(), ref.abs())[other]
         flips.append((int(other.sum()),
                       float(mag.max()) if mag.numel() else 0.0,
                       float(xd.abs().max())))
@@ -406,6 +496,61 @@ def relu_branches(torch, inputs, replay):
         F.relu = relu
     check(not replay or len(flips) == len(inputs),
           f"{len(flips)} ReLU calls replayed, {len(inputs)} recorded")
+
+
+def flip_text(flips, inputs):
+    """(the replayed ReLU calls' flips as a log phrase, the largest
+    flipped |input| over its call's largest)."""
+    flip_rel = max((f[1] / max(f[2], 1e-30) for f in flips), default=0.0)
+    return (f"ReLU: {sum(f[0] for f in flips)} of "
+            f"{sum(t.numel() for t in inputs)} inputs in "
+            f"{sum(f[0] > 0 for f in flips)} of {len(flips)} calls took "
+            f"the other branch, the largest |input| among them "
+            f"{max((f[1] for f in flips), default=0.0):.2e}, "
+            f"{flip_rel:.2e} of its call's largest"), flip_rel
+
+
+def ulp_moved(torch, model):
+    """model with every weight moved by an ulp, w * (1 +- 2**-23)."""
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in model.parameters():
+            sign = torch.randint(0, 2, p.shape, generator=g) * 2 - 1
+            p.mul_(1.0 + sign.to(p.dtype) * 2.0 ** -23)
+    return model
+
+
+def grad_leaves(got, ref, base, moved, label):
+    """(err / leaf scale, err / tol, name, |err|, leaf scale, ulp move) of
+    each gradient of ``got`` against ``ref``'s ({name: host tensor or
+    None}).  ``base`` and ``moved`` are the gated reference step's
+    gradients and the same step's with every weight moved by an ulp: a
+    leaf's scale is its largest |base|, its ulp move the largest change,
+    and tol = 1e-4 |ref| + 1e-4 of the leaf's scale + 8x its ulp move +
+    1e-7 of the model's largest gradient (the module docstring's gate)."""
+    check(set(got) == set(ref), f"{label}: the steps' parameters differ")
+    gscale = max(float(g.abs().max()) for g in base.values()
+                 if g is not None)
+    out = []
+    for n, want in ref.items():
+        check((got[n] is None) == (want is None),
+              f"{label}: {n} has a gradient in one step only")
+        if want is None:
+            continue
+        scale = float(base[n].abs().max())
+        ulp = float((moved[n] - base[n]).abs().max())
+        atol = 1e-4 * scale + 8 * ulp + 1e-7 * gscale
+        err = (got[n] - want).abs()
+        out.append((float(err.max()) / max(scale, 1e-30),
+                    float((err / (atol + 1e-4 * want.abs())).max()),
+                    n, float(err.max()), scale, ulp))
+    return out
+
+
+def leaf_text(t):
+    """One ``grad_leaves`` entry as a log phrase."""
+    return (f"{t[2]} (|err| {t[3]:.2e}, leaf max {t[4]:.2e}, "
+            f"ulp-moved {t[5]:.2e}, err/tol {t[1]:.2f})")
 
 
 def time_ms(torch, fn, inputs, iters=200, warmup=20):
@@ -446,7 +591,9 @@ def profile_step(torch, step, step_ms, label, steps=3):
     """Device time per train step by kernel (torch.profiler), the
     device's idle share against the unprofiled step time, and the time of
     ``indexing_backward_kernel`` (the serialising backward of a gather
-    into a small table, PERF.md)."""
+    into a small table, PERF.md).  Returns (device busy ms, launches,
+    idle share, indexing_backward ms) per step, or None where the
+    profiler recorded no kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -461,17 +608,23 @@ def profile_step(torch, step, step_ms, label, steps=3):
     if busy_ms == 0.0:
         log(f"[profile] {label} train step: device time not measured (the "
             "profiler recorded no kernel)")
-        return
+        return None
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     ib = [e for e in kernels if "indexing_backward" in e.key]
     log(f"[profile] {label} train step: indexing_backward_kernel "
         + (", ".join(f"{e.self_device_time_total / 1e3 / steps:.3f} ms/step "
                      f"(x{e.count // steps})" for e in ib) if ib else "none"))
+    rnn = sorted({e.key[:60] for e in kernels
+                  if "rnn" in e.key.lower() or "lstm" in e.key.lower()})
+    log(f"[profile] {label} train step: LSTM kernels {rnn or 'none'}")
     log(f"[profile] {label} train step: device busy {busy_ms:.3f} ms of "
         f"{step_ms:.2f} ms (idle share {1 - busy_ms / step_ms:.3f}), "
         f"{launches:.0f} kernel launches; top kernels by device ms/step: "
         + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / steps:.3f}"
                     f" (x{e.count // steps})" for e in top))
+    return (busy_ms, launches, 1 - busy_ms / step_ms,
+            sum(e.self_device_time_total for e in ib) / 1e3 / steps,
+            [e.key for e in kernels])
 
 
 def main():
@@ -492,12 +645,18 @@ def main():
     from kpgnn_tpu_torch.data.expressiveness import generate_csl
     from kpgnn_tpu_torch.data.molecules import load_zinc
     from kpgnn_tpu_torch.models.factory import make_model
+    from kpgnn_tpu_torch.nn.basic import TorchLinear
     from kpgnn_tpu_torch.nn.inits import init_parameters
     from kpgnn_tpu_torch.ops import cuda_lib, spmm
+    from kpgnn_tpu_torch.ops.lstm import BiLSTM
+    from kpgnn_tpu_torch.prep import native
+    from kpgnn_tpu_torch.prep.khop import extract_graphs
     from kpgnn_tpu_torch.scripts import common, train_csl, train_qm9, train_zinc
     from kpgnn_tpu_torch.train.loader import GraphLoader
     from kpgnn_tpu_torch.train.loop import (_batch_target_mask, _masked_loss,
-                                            train_step)
+                                            resident_rule, train_step)
+    from kpgnn_tpu_torch.train.resident import (build_coo_store,
+                                                build_dense_store, gather_any)
     from kpgnn_tpu_torch.train.state import make_optimizer
 
     common.set_full_f32()
@@ -522,18 +681,51 @@ def main():
           "TF32 is on for cuBLAS or cuDNN after common.set_full_f32()")
 
     work = tempfile.mkdtemp(prefix="kpgnn_smoke_")
+    # every script's prep cache (--cache_dir's default) in the scratch dir
+    os.environ["KPGNN_CACHE_DIR"] = cache_dir = os.path.join(work, "cache")
     try:
         write_fixture(work)
         args = train_zinc.parser().parse_args(
             train_argv(work, os.path.join(work, "save"), "cuda"))
         splits = load_zinc(os.path.join(work, "ZINC"))
+
+        # ---- the native prep and the prep cache ----
+        check(native.available(),
+              f"the native prep did not build: {native.BUILD_ERROR}")
+        log(f"[prep] native prep built from "
+            f"{os.path.relpath(native.SOURCE, ROOT)} with g++ (source hash "
+            f"{native.source_hash()}) in {native.BUILD_SECONDS:.2f} s")
+
+        def prep_s(fn):
+            t0 = time.perf_counter()
+            out = fn()
+            return out, time.perf_counter() - t0
+        zinc_train, miss_s = prep_s(lambda: common.prepare(
+            splits["train"], args, "ZINC_train"))
+        hit, hit_s = prep_s(lambda: common.prepare(
+            splits["train"], args, "ZINC_train"))
+        available = native.available
+        native.available = lambda: False            # the numpy path
+        try:
+            plain_graphs, plain_s = prep_s(lambda: extract_graphs(
+                splits["train"], common.khop_config(args)))
+        finally:
+            native.available = available
+        check(same_graphs(hit, zinc_train),
+              "prep: the cache hit differs from the fresh prep")
+        check(same_graphs(plain_graphs, zinc_train),
+              "prep: the native path differs from the numpy path")
+        log(f"[prep] flagship train split, {len(zinc_train)} graphs at K={K}: "
+            f"native prep + cache write {miss_s:.3f} s, cache hit "
+            f"{hit_s:.3f} s (equal graphs), numpy path {plain_s:.3f} s "
+            f"(equal graphs); cache {sorted(os.listdir(cache_dir))}")
+        mark("build and prep")
         mcfg = common.model_config(args, input_encoder=("embedding", 21),
                                    task="graph_regression", output_size=1)
         lk = common.loader_kwargs(args, mcfg)
         # the trainer's own loader (same seed), so the flagship plan has the
         # main path's shapes: the loader's worst-case n_pad over the split
-        tl = GraphLoader(common.prepare(splits["train"], args), BATCH,
-                         shuffle=True, seed=SEED, **lk)
+        tl = GraphLoader(zinc_train, BATCH, shuffle=True, seed=SEED, **lk)
         fb = tl.example()
         plan = fb.adj.to(dev)
         union_edges = sum(g.num_edges for g in tl.graphs[:BATCH])
@@ -554,7 +746,7 @@ def main():
         raw = generate_csl()
         for g in raw:
             g["x"] = np.ones((g["num_nodes"], 1), dtype=np.float32)
-        cgraphs = common.prepare(raw, cargs)
+        cgraphs = common.prepare(raw, cargs, "CSL")
         tr, va, te = train_csl.splits([int(g.y[0]) for g in cgraphs], 1,
                                       SEED)[0]
         ctrain = [cgraphs[i] for i in tr]
@@ -590,7 +782,7 @@ def main():
             a = train_qm9.parser().parse_args(qm9_argv(
                 work, os.path.join(work, "qm9"), "cuda", backend, extra))
             (train, _, _), _ = train_qm9.task_splits(
-                common.prepare(train_qm9.load(a), a), a)
+                common.prepare(train_qm9.load(a), a, "QM9"), a)
             cfg = common.model_config(a, input_encoder=("qm9", 0),
                                       task="graph_regression", output_size=1)
             return a, train, cfg
@@ -679,7 +871,7 @@ def main():
             f"pallas plan {collate_ms(ctl):.1f} ms, coo "
             f"{collate_ms(coo_tl):.1f} ms")
 
-        mark("build and data")
+        mark("data")
         # ---- 2. kernels against their plain versions ----
         gen = torch.Generator(device=dev).manual_seed(0)
         errs = Counter()            # variant -> max |err| over its checks
@@ -704,23 +896,32 @@ def main():
                 spmm, lambda: spmm._GatherSegment.apply(xk, fwd, bwd))
             _, v_b = launched(spmm, lambda: (out * w).sum().backward())
             out = out.detach()
-            grad_k, v_g = launched(spmm, lambda: bwd.gather(w))
+            # the backward gathers the gradient in x's dtype (a bf16 x
+            # takes the bf16 variant over bwd, as the main path's --bf16)
+            wg = w if dtype == torch.float32 else w.to(dtype)
+            grad_k, v_g = launched(spmm, lambda: bwd.gather(wg))
             check(xk.grad.dtype == dtype
                   and torch.equal(xk.grad, grad_k.to(dtype)),
                   f"{name}: autograd backward is not the kernel over bwd")
-            vec = D * x.element_size() % 16 == 0 and not mis
-            expect_f = spmm.variant_name(dtype, vec, False)
-            expect_g = spmm.variant_name(torch.float32,
-                                         D % 4 == 0 and not mis, False)
-            check(v_f == {expect_f: 1} and v_g == {expect_g: 1},
-                  f"{name}: launched {v_f} forward, {v_g} backward; "
-                  f"expected {expect_f}, {expect_g}")
-            # plain version: forward on the same values, f32 gradient
+            vec = D * x.element_size() % 16 == 0
+            expect_f = spmm.variant_name(dtype, vec and not mis, False)
+            # autograd's gradient is a fresh (aligned) tensor
+            expect_b = spmm.variant_name(dtype, vec, False)
+            expect_g = spmm.variant_name(
+                dtype, vec and wg.data_ptr() % 16 == 0, False)
+            check(v_f == {expect_f: 1} and v_b == {expect_b: 1}
+                  and v_g == {expect_g: 1},
+                  f"{name}: launched {v_f} forward, {v_b} autograd "
+                  f"backward, {v_g} backward; expected {expect_f}, "
+                  f"{expect_b}, {expect_g}")
+            # plain version: forward on the same values, the gradient in
+            # f32 of the values the kernel gathers
             ref = spmm.gather_segment_sum_reference(
                 x, fwd.indptr, fwd.senders, fwd.n_rows)
             xr = x.float().clone().requires_grad_(True)
             (spmm.gather_segment_sum_reference(
-                xr, fwd.indptr, fwd.senders, fwd.n_rows) * w).sum().backward()
+                xr, fwd.indptr, fwd.senders, fwd.n_rows)
+             * wg.float()).sum().backward()
             torch.cuda.synchronize()
             check(out.dtype == torch.float32 and out.shape == ref.shape,
                   f"{name}: output {out.dtype} {tuple(out.shape)}")
@@ -806,12 +1007,16 @@ def main():
                 spmm, lambda: spmm._FusedKHop.apply(xk, t1k, tkk, sub))
             _, v_b = launched(spmm, lambda: (out * w).sum().backward())
             out = out.detach()
-            grad_k = sub.bwd.gather(w)
+            # dx gathers the gradient in x's dtype; the table gradients
+            # take it in f32
+            wg = w.to(dtype)
+            grad_k = sub.bwd.gather(wg)
             check(torch.equal(xk.grad, grad_k.to(dtype)),
                   f"{name}: dx is not the gather kernel over bwd")
             expect_f = spmm.variant_name(
                 dtype, D * x.element_size() % 16 == 0 and not mis, True)
-            expect_b = spmm.variant_name(torch.float32, D % 4 == 0, False)
+            expect_b = spmm.variant_name(
+                dtype, D * wg.element_size() % 16 == 0, False)
             check(v_f == {expect_f: 1} and v_b == {expect_b: 1},
                   f"{name}: launched {v_f} forward, {v_b} backward; "
                   f"expected {expect_f}, {expect_b}")
@@ -830,8 +1035,12 @@ def main():
 
             def rows_bound(n_rows):
                 return 2 * math.sqrt(n_rows) * 2.0 ** -24
+            dx_ref = (xr.grad if dtype == torch.float32 else
+                      spmm.gather_segment_sum_reference(
+                          wg.float(), sub.bwd.indptr, sub.bwd.senders,
+                          sub.bwd.n_rows))
             grads = [("fwd", out, ref, absf, 1e-6),
-                     ("dx", grad_k, xr.grad, None, 0.0),
+                     ("dx", grad_k, dx_ref, None, 0.0),
                      ("d table1", t1k.grad, t1r.grad,
                       sub.counts1.t() @ w[:n].abs(), rows_bound(n))]
             if k > 1:
@@ -949,15 +1158,26 @@ def main():
             """``sl.main(sl.argv)`` on the card: its epochs, finite losses
             and metrics, per train step L fused forward + L gather backward
             launches at width sl.D and per eval step L fused (none at
-            L = 0, the dense backend), and its first-step loss equal to the
-            same step on the CPU (plain version) and on the card on each
-            of ``backends`` (rtol 1e-4).  Returns (rows, step losses,
-            launches per variant, per (variant, D))."""
+            L = 0: the coo and dense backends), and its first-step loss
+            equal to the same step on the CPU (plain version) and on the
+            card on each of ``backends`` (rtol ``sl.rtol``, default 1e-4).
+            ``sl.variants`` names the (fused, gather) variants, f32 by
+            default.  Records the dtypes of the model's parameters and
+            norm statistics after the run in ``sl.dtypes``.  Returns (rows,
+            step losses, launches per variant, per (variant, D))."""
+            fv, gv = getattr(sl, "variants", (fused_v, gather_v))
+            rtol = getattr(sl, "rtol", 1e-4)
             rows = []
+            sl.dtypes = set()
+
+            def on_epoch(epoch, model, row):
+                rows.append(row)
+                sl.dtypes = {t.dtype for t in model.parameters()} | {
+                    t.dtype for n, t in model.named_buffers()
+                    if "running" in n}
             spmm.reset_launch_counts()
             t0 = time.perf_counter()
-            result = sl.main(sl.argv, epoch_callback=lambda e, m, row:
-                             rows.append(row))
+            result = sl.main(sl.argv, epoch_callback=on_epoch)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             v = dict(spmm.gather_segment_sum.variant_launches)
@@ -966,7 +1186,7 @@ def main():
             n_tr = sl.epochs * sl.train_steps
             n_ev = sl.epochs * sl.val_steps + sl.test_steps * sum(
                 any(k.startswith("test_") for k in r) for r in rows)
-            expect = ({fused_v: (n_tr + n_ev) * sl.L, gather_v: n_tr * sl.L}
+            expect = ({fv: (n_tr + n_ev) * sl.L, gv: n_tr * sl.L}
                       if sl.L else {})
             log(f"[{label}] {len(rows)} epochs in {secs:.1f} s: {n_tr} train "
                 f"steps, {n_ev} eval steps, train_loss "
@@ -982,8 +1202,7 @@ def main():
                   and all(math.isfinite(x) for r in rows for x in r.values()
                           if isinstance(x, float)),
                   f"{label}: non-finite loss or metric")
-            check(v == expect and set(w) <= {(fused_v, sl.D),
-                                             (gather_v, sl.D)},
+            check(v == expect and set(w) <= {(fv, sl.D), (gv, sl.D)},
                   f"{label}: kernel launches {v} {dict(w)} != {expect} at "
                   f"D={sl.D} (per train step L fused forward + L gather "
                   f"backward, per eval step L fused forward)")
@@ -997,10 +1216,10 @@ def main():
             log(f"[{label}] first-step loss GPU {got:.7f}, " + ", ".join(
                 f"{k} {x:.7f} (rel diff {rel[k]:.2e})"
                 for k, x in refs.items()))
-            check(max(rel.values()) <= 1e-4,
+            check(max(rel.values()) <= rtol,
                   f"{label}: first-step loss differs by "
                   + ", ".join(f"{x:.2e} ({k})" for k, x in rel.items())
-                  + " > 1e-4")
+                  + f" > {rtol:g}")
             return rows, losses, v, w
 
         # ---- 3. the main path: train_zinc at full width ----
@@ -1013,9 +1232,290 @@ def main():
             test_steps=math.ceil(N_TEST / BATCH),
             loaders={"pallas": tl, "coo": GraphLoader(
                 tl.graphs, BATCH, shuffle=True, seed=SEED, mode="coo")})
-        path_w = script_phase("train", zinc, ("coo",))[3]
+        _, zlosses, _, path_w = script_phase("train", zinc, ("coo",))
 
         mark("train")
+        # ---- 3b. --bf16 on the main path: the kernel's bf16 variants ----
+        fused_b = spmm.variant_name(torch.bfloat16, True, True)
+        gather_b = spmm.variant_name(torch.bfloat16, True, False)
+        bargv = zinc.argv + ["--bf16"]
+        bmcfg = common.model_config(
+            train_zinc.parser().parse_args(bargv),
+            input_encoder=("embedding", 21), task="graph_regression",
+            output_size=1)
+        check(bmcfg.compute_dtype == "bfloat16", "--bf16 gave "
+              f"compute_dtype {bmcfg.compute_dtype}")
+        zinc_bf16 = SimpleNamespace(**dict(
+            vars(zinc), argv=bargv, cfg=bmcfg, variants=(fused_b, gather_b),
+            rtol=BF16_RTOL))
+        _, blosses, _, bf16_w = script_phase("bf16", zinc_bf16, ("coo",))
+        rel = abs(blosses[0] - zlosses[0]) / abs(zlosses[0])
+        log(f"[bf16] first-step loss {blosses[0]:.7f}, the f32 run's "
+            f"{zlosses[0]:.7f} (rel diff {rel:.2e}, bound 5e-2); parameters "
+            f"and norm statistics after the run: {sorted(map(str, zinc_bf16.dtypes))}")
+        check(rel <= 5e-2, f"bf16: first-step loss {rel:.2e} from the f32 "
+              f"run's > 5e-2")
+        check(zinc_bf16.dtypes == {torch.float32},
+              f"bf16: parameters or norm statistics in {zinc_bf16.dtypes}")
+        # the bf16 train step on one fixed batch; its profile names the
+        # LSTM kernels the bf16 combine runs on (cuDNN's RNN or PyTorch's
+        # fused cell)
+        bmodel = init_parameters(make_model(bmcfg), SEED).to(dev)
+        bopt = make_optimizer(bmodel.parameters(), 1e-3)
+        bbatch = fb.to(dev)
+
+        def bf16_step():
+            return train_step(bmodel, bopt, bbatch)
+        # the activations run in bf16, not only the loss bounds' outputs:
+        # every linear map and LSTM of the K-hop layers returns bf16 on
+        # the card, and the step's profile shows cuDNN's bf16 LSTM and a
+        # bf16 GEMM (a model that computed in f32 and cast its output
+        # would meet the loss bounds above)
+        out_dtypes = {}
+        hooks = [m.register_forward_hook(
+            lambda mod, args, out, n=n: out_dtypes.__setitem__(n, out.dtype))
+            for n, m in bmodel.named_modules()
+            if isinstance(m, (TorchLinear, BiLSTM))]
+        try:
+            _, v = launched(spmm, bf16_step)
+        finally:
+            for h in hooks:
+                h.remove()
+        check(v == {fused_b: L, gather_b: L},
+              f"the bf16 train step launched {v}")
+        layer_out = {n: d for n, d in out_dtypes.items() if n.startswith(
+            ("embedding_model.gnn", "embedding_model.output_proj"))}
+        f32_out = sorted(n for n, d in out_dtypes.items()
+                         if d != torch.bfloat16)
+        log(f"[bf16] linear and LSTM outputs of the step: "
+            f"{len(out_dtypes) - len(f32_out)} of {len(out_dtypes)} bf16, "
+            f"all {len(layer_out)} of the K-hop layers' and the output "
+            f"projection's among them; f32: {f32_out}")
+        check(layer_out and set(layer_out.values()) == {torch.bfloat16},
+              f"bf16: a K-hop layer's linear map or LSTM returned "
+              f"{sorted(map(str, set(layer_out.values())))}")
+        bstep_ms = host_step_ms(torch, bf16_step)
+        log(f"[time] flagship bf16 train step {bstep_ms:.2f} ms")
+        bprof = profile_step(torch, bf16_step, bstep_ms, "flagship bf16")
+        if bprof is not None:
+            rnn = [k for k in bprof[4]
+                   if "rnn" in k.lower() or "lstm" in k.lower()]
+            gemm16 = [k[:60] for k in bprof[4]
+                      if "gemm" in k.lower() and "bf16" in k.lower()]
+            log(f"[bf16] the step's bf16 GEMMs: {gemm16}")
+            check(rnn and all("bfloat16" in k for k in rnn),
+                  f"bf16: the step's LSTM ran {[k[:60] for k in rnn]}")
+            check(gemm16, "bf16: the step ran no bf16 GEMM")
+
+        mark("bf16")
+        # ---- 3c. resident epochs against per-batch ones ----
+        def resident_runs(label, base, argv, runs):
+            """The runs ``runs`` ({name: (extra argv, resident expected)})
+            of ``base``'s script with ``argv(save_dir) + extra``, under
+            deterministic algorithms (the card's atomics would otherwise
+            make two runs of one mode drift apart: ``resident_gate``).
+            Each run's log must show the expected decision.  Returns {name:
+            (step losses, train epoch seconds)}."""
+            out = {}
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            torch.backends.cudnn.deterministic = True
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    for name, (extra, resident) in runs.items():
+                        save = os.path.join(work, "resident",
+                                            f"{label}_{name}".replace(" ", "_"))
+                        rsl = SimpleNamespace(**dict(
+                            vars(base), L=0, argv=argv(save) + list(extra)))
+                        rows, losses, _, _ = script_phase(
+                            f"resident {label} {name}", rsl, ())
+                        text = run_log(save)
+                        went = ("resident store:" in text
+                                or "resident stores" in text)
+                        line = [x.split("] ", 1)[-1] for x in text.splitlines()
+                                if "resident store" in x
+                                or "per-batch epochs" in x]
+                        log(f"[resident] {label} {name}: "
+                            f"{line[0] if line else 'no decision logged'}; "
+                            f"train epoch {rows[0]['seconds']:.3f} s")
+                        check(went == resident, f"resident {label} {name}: "
+                              f"went resident {went}, expected {resident}")
+                        out[name] = (losses, rows[0]["seconds"])
+            finally:
+                torch.use_deterministic_algorithms(False)
+                torch.backends.cudnn.deterministic = False
+            nondet = sorted({str(w.message).split(".")[0][:90] for w in caught
+                             if "deterministic" in str(w.message)})
+            log(f"[resident] {label}: ops without a deterministic "
+                f"implementation: {nondet or 'none'}")
+            return out
+
+        def resident_gate(label, out, resident, per, per2, same_batches):
+            """The resident run's step losses against the per-batch run's
+            within rtol 1e-4: every step where the batches are the same
+            (dense) and the per-batch run repeats itself bit for bit;
+            else the first step only.  Two runs that sum in another order
+            (COO's slot layout against collate's packing, or atomics)
+            drift apart from the second step on: Adam's first updates
+            move each weight by about lr * sign(g), and rounding flips
+            the sign of gradients near 0 (PERF.md §6).  Logs both runs'
+            drift."""
+            r, p, p2 = out[resident][0], out[per][0], out[per2][0]
+            check(len(r) == len(p) == len(p2),
+                  f"{label}: {len(r)}, {len(p)}, {len(p2)} steps")
+            rel, self_rel = np.abs(r - p) / np.abs(p), np.abs(p2 - p) / np.abs(p)
+            repeats = bool(np.array_equal(p, p2))
+            n = len(r) if same_batches and repeats else 1
+            log(f"[resident] {label}: {resident} against {per}, rel diff per "
+                f"step {np.array2string(rel, precision=2, separator=',')}; "
+                f"{per2} against {per}: largest {self_rel.max():.2e}"
+                f"{' (bit-identical)' if repeats else ''}; gated: steps 1.."
+                f"{n} (rtol 1e-4); train epoch {out[resident][1]:.3f} s "
+                f"resident, {out[per][1]:.3f} / {out[per2][1]:.3f} s per "
+                f"batch")
+            check(rel[:n].max() <= 1e-4, f"{label}: {resident}'s step losses "
+                  f"differ from {per}'s by {rel[:n].max():.2e} > 1e-4 in "
+                  f"steps 1..{n}")
+            return rel
+
+        zinc_argv = lambda save: train_argv(work, save, "cuda")  # noqa: E731
+        coo_rule = resident_rule("auto", zinc.loaders["coo"])
+        log(f"[resident] coo auto decides: {coo_rule[1]}")
+        coo_off = ("--backend", "coo", "--resident", "off")
+        runs = {"auto": (("--backend", "coo"), coo_rule[0]),
+                "off": (coo_off, False),
+                "on": (("--backend", "coo", "--resident", "on"), True)}
+        if coo_rule[0]:         # auto went resident: a second per-batch run
+            runs["off again"] = (coo_off, False)
+        out = resident_runs("coo", zinc, zinc_argv, runs)
+        coo_rel = resident_gate("coo", out, "on", "off",
+                                "off again" if coo_rule[0] else "auto",
+                                False)
+
+        # the COO store's slot layout against collate's packing of the
+        # same 64 graphs, before any update: the loss, every graph's
+        # prediction and every gradient under the gradient gate.  The
+        # collated steps (the ulp-moved one too) replay the gathered
+        # step's ReLU branches on the real nodes, which both layouts hold
+        # in the same order (every ReLU of the model is node-level)
+        def first_step(batch, moved=False):
+            model = init_parameters(make_model(mcfg), SEED)
+            model = (ulp_moved(torch, model) if moved else model).to(dev)
+            pred = model(batch, train=True)
+            lsum, cnt = _masked_loss(pred, batch.y, batch.graph_mask, "l1")
+            (lsum / cnt).backward()
+            return (float((lsum / cnt).detach()), pred.detach()[:BATCH],
+                    {n: p.grad.cpu() for n, p in model.named_parameters()
+                     if p.grad is not None})
+        gathered = gather_any(build_coo_store(zinc_train, device=dev),
+                              torch.arange(BATCH, device=dev))
+        collated = zinc.loaders["coo"]._collate(zinc_train[:BATCH]).to(dev)
+        layouts = (gathered.node_mask.cpu(), collated.node_mask.cpu())
+        gathered_relu = []
+        with relu_branches(torch, gathered_relu, replay=False):
+            loss_r, pred_r, grads_r = first_step(gathered)
+        with relu_branches(torch, gathered_relu, replay=True,
+                           layouts=layouts) as flips:
+            loss_p, pred_p, grads_p = first_step(collated)
+        with relu_branches(torch, gathered_relu, replay=True,
+                           layouts=layouts):
+            _, _, grads_u = first_step(collated, moved=True)
+        leaves = grad_leaves(grads_r, grads_p, grads_p, grads_u,
+                             "coo: the gathered batch")
+        over = [t for t in leaves if t[1] > 1.0]
+        # a leaf whose ulp move reaches a quarter of its largest gradient
+        # is rounding noise (a bias ahead of a batch norm: 0 in exact
+        # arithmetic); the 8x ulp term admits it, and it is named here
+        noise = sorted(t[2] for t in leaves if t[5] >= 0.25 * t[4])
+        flips_line, flip_rel = flip_text(flips, gathered_relu)
+        pred_err = float((pred_r - pred_p).abs().max())
+        pscale = float(pred_p.abs().max())
+        log(f"[resident] coo: the first batch gathered from the store "
+            f"against collated: loss {loss_r:.7f} / {loss_p:.7f} (rel diff "
+            f"{abs(loss_r - loss_p) / abs(loss_p):.2e}); {BATCH} "
+            f"predictions, max |err| {pred_err:.2e} of max {pscale:.2e}; "
+            f"{flips_line} in the collated layout; {len(leaves)} gradients "
+            f"under the gradient gate, worst by |err| / leaf max: "
+            f"{leaf_text(max(leaves))}; worst by |err| / tol: "
+            f"{leaf_text(max(leaves, key=lambda t: t[1]))}; rounding-noise "
+            f"leaves (ulp move >= 1/4 of the leaf max): {len(noise)} "
+            f"{noise}")
+        if over:
+            log(f"[resident] coo: {len(over)} gradients outside the gate: "
+                + "; ".join(leaf_text(t) for t in over))
+        check(abs(loss_r - loss_p) <= 1e-5 * abs(loss_p)
+              and pred_err <= 1e-5 * max(pscale, 1.0),
+              f"coo: the gathered batch's first step differs from the "
+              f"collated one's (loss {loss_r} / {loss_p}, predictions "
+              f"{pred_err:.2e})")
+        check(not over, f"coo: the gathered batch's first step has "
+              f"{len(over)} gradients outside the gate")
+        check(flip_rel <= 1e-4, f"coo: a ReLU input {flip_rel:.2e} of its "
+              f"call's largest from 0 took another branch in the gathered "
+              f"layout")
+        # the control for the drift above: rounding alone.  The per-batch
+        # run's first 4 steps again, from its weights and from the same
+        # weights moved by an ulp, under deterministic algorithms; the
+        # parameters whose entries end furthest apart, by the share of
+        # entries more than lr apart
+        def coo_steps(batches, moved):
+            model = init_parameters(make_model(mcfg), SEED)
+            model = (ulp_moved(torch, model) if moved else model).to(dev)
+            opt = make_optimizer(model.parameters(), args.lr, args.l2_wd)
+            losses = [float(torch.div(*train_step(model, opt, b.to(dev))))
+                      for b in batches]
+            return (np.array(losses), {n: p.detach().cpu()
+                                       for n, p in model.named_parameters()})
+        control = first_batches(zinc.loaders["coo"], 4)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+        try:
+            (base, pb), (moved, pm) = (coo_steps(control, m)
+                                       for m in (False, True))
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+        apart = sorted(((float(((pm[n] - p).abs() > args.lr).float().mean()),
+                         n) for n, p in pb.items()), reverse=True)
+
+        def steps(a):
+            return np.array2string(a, precision=2, separator=",")
+        log(f"[resident] coo: control, the per-batch steps from weights "
+            f"moved by an ulp against unmoved, rel diff per step "
+            f"{steps(np.abs(moved - base) / np.abs(base))} (resident against "
+            f"per batch: {steps(coo_rel[:4])}); "
+            f"step 1 loss {base[0]:.7f}, the per-batch run's "
+            f"{out['off'][0][0]:.7f}; most entries more than lr apart after "
+            f"4 steps: " + ", ".join(f"{n} {x:.2f}" for x, n in apart[:6]))
+        out = resident_runs("dense", zinc, zinc_argv, {
+            "auto": (("--dense",), True),
+            "off": (("--dense", "--resident", "off"), False),
+            "off again": (("--dense", "--resident", "off"), False)})
+        resident_gate("dense", out, "auto", "off", "off again", True)
+        # one step's host time, launches and idle share, resident (the
+        # batch gathered from the store on the card) against per-batch
+        # (the host-collated batch copied to the card)
+        for mode in ("dense", "coo"):
+            loader = GraphLoader(zinc_train, BATCH, shuffle=True, seed=SEED,
+                                 **dict(lk, mode=mode))
+            store = (build_dense_store(zinc_train, loader.n_slot, loader.v1,
+                                       loader.vk, device=dev)
+                     if mode == "dense" else build_coo_store(
+                         zinc_train, device=dev))
+            idx = torch.arange(BATCH, device=dev)
+            host_batch = loader._collate(zinc_train[:BATCH])
+            rmodel = init_parameters(make_model(mcfg), SEED).to(dev)
+            ropt = make_optimizer(rmodel.parameters(), 1e-3)
+            for how, step in (
+                    ("resident", lambda: train_step(
+                        rmodel, ropt, gather_any(store, idx))),
+                    ("per-batch", lambda: train_step(
+                        rmodel, ropt, host_batch.to(dev)))):
+                rms = host_step_ms(torch, step)
+                log(f"[time] {mode} {how} train step {rms:.2f} ms")
+                profile_step(torch, step, rms, f"{mode} {how}")
+
+        mark("resident")
         # ---- 4. the CSL slice: train_csl at the reference width ----
         csl = SimpleNamespace(
             main=train_csl.main,
@@ -1041,15 +1541,6 @@ def main():
             return (float(lsum / cnt),
                     {n: None if p.grad is None else p.grad.cpu()
                      for n, p in model.named_parameters()}, v)
-
-        def ulp_moved(model):
-            """model with every weight moved by an ulp, w * (1 +- 2**-23)."""
-            g = torch.Generator().manual_seed(1)
-            with torch.no_grad():
-                for p in model.parameters():
-                    sign = torch.randint(0, 2, p.shape, generator=g) * 2 - 1
-                    p.mul_(1.0 + sign.to(p.dtype) * 2.0 ** -23)
-            return model
 
         def gradient_gate(label, name, cfg, loader, hp, loss, expect,
                           node_level=False):
@@ -1078,57 +1569,28 @@ def main():
                 _, grads, v_r = step_grads(fresh(), batch, *hp, loss,
                                            node_level)
             with relu_branches(torch, card_relu, replay=True):
-                _, grads_u, _ = step_grads(ulp_moved(fresh()), batch, *hp,
-                                           loss, node_level)
+                _, grads_u, _ = step_grads(ulp_moved(torch, fresh()), batch,
+                                           *hp, loss, node_level)
             rel = abs(loss_g - loss_c) / abs(loss_c)
             gscale = max(float(g.abs().max()) for g in grads.values()
                          if g is not None)
-
-            def leaves(ref):
-                """(err / leaf scale, err / tol, name, |err|, leaf scale,
-                ulp move) of each gradient against ``ref``'s."""
-                out = []
-                for n, want in ref.items():
-                    check((grads_g[n] is None) == (want is None),
-                          f"{name}: {n} has a gradient on one device only")
-                    if want is None:
-                        continue
-                    scale = float(grads[n].abs().max())
-                    ulp = float((grads_u[n] - grads[n]).abs().max())
-                    atol = 1e-4 * scale + 8 * ulp + 1e-7 * gscale
-                    err = (grads_g[n] - want).abs()
-                    out.append((float(err.max()) / max(scale, 1e-30),
-                                float((err / (atol + 1e-4 * want.abs()))
-                                      .max()),
-                                n, float(err.max()), scale, ulp))
-                return out
-
-            def leaf(t):
-                return (f"{t[2]} (|err| {t[3]:.2e}, leaf max {t[4]:.2e}, "
-                        f"ulp-moved {t[5]:.2e}, err/tol {t[1]:.2f})")
-            gated, own = leaves(grads), leaves(grads_own)
+            gated = grad_leaves(grads_g, grads, grads, grads_u, name)
+            own = grad_leaves(grads_g, grads_own, grads, grads_u, name)
             over = [t for t in gated if t[1] > 1.0]
-            n_flip = sum(f[0] for f in flips)
-            flip_rel = max((f[1] / max(f[2], 1e-30) for f in flips),
-                           default=0.0)
+            flips_line, flip_rel = flip_text(flips, card_relu)
             log(f"[{label}] {name}: loss GPU {loss_g:.7f} CPU {loss_c:.7f} "
-                f"(rel diff {rel:.2e}); ReLU: {n_flip} of "
-                f"{sum(t.numel() for t in card_relu)} inputs in "
-                f"{sum(f[0] > 0 for f in flips)} of {len(flips)} calls took "
-                f"the other branch on the card, the largest |input| among "
-                f"them {max((f[1] for f in flips), default=0.0):.2e}, "
-                f"{flip_rel:.2e} of its "
-                f"call's largest; {len(gated)} gradients against the CPU "
+                f"(rel diff {rel:.2e}); {flips_line} on the card; "
+                f"{len(gated)} gradients against the CPU "
                 f"step on the card's branches, largest {gscale:.2e}; worst "
-                f"by |err| / leaf max: {leaf(max(gated))}; worst by |err| / "
-                f"tol: {leaf(max(gated, key=lambda t: t[1]))}; against the "
-                f"CPU step on its own branches, "
+                f"by |err| / leaf max: {leaf_text(max(gated))}; worst by "
+                f"|err| / tol: {leaf_text(max(gated, key=lambda t: t[1]))}; "
+                f"against the CPU step on its own branches, "
                 f"{sum(t[1] > 1.0 for t in own)} outside the gate, worst "
-                f"{leaf(max(own, key=lambda t: t[1]))}; kernel launches "
+                f"{leaf_text(max(own, key=lambda t: t[1]))}; kernel launches "
                 f"{v_g} (expected {expect}), by width {dict(+w)}")
             if over:
                 log(f"[{label}] {name}: {len(over)} gradients outside the "
-                    "gate: " + "; ".join(leaf(t) for t in over))
+                    "gate: " + "; ".join(leaf_text(t) for t in over))
             check(not over, f"{name}: {len(over)} gradients outside the gate")
             check(flip_rel <= 1e-4, f"{name}: a ReLU input {flip_rel:.2e} "
                   f"of its call's largest from 0 took another branch on the "
@@ -1200,6 +1662,15 @@ def main():
         gen_w = {}
         for label, sl in slices.items():
             gen_w[label] = script_phase(label, sl)[3]
+        # TU's --dense fold takes the resident path (the JAX script's
+        # rule): its step losses against the same fold per batch
+        out = resident_runs("tu", slices["tu"], lambda save: generated_argv(
+            "tu", work, "cuda", "pallas") + ["--save_dir", save], {
+            "dense": (("--dense",), True),
+            "dense off": (("--dense", "--resident", "off"), False),
+            "dense off again": (("--dense", "--resident", "off"), False)})
+        resident_gate("tu", out, "dense", "dense off", "dense off again",
+                      True)
         sl = slices["nprop"]
         gen_w["nprop"].update(gradient_gate(
             "nprop", f"KPGINPlus K={sl.cfg.K} L={sl.L} node regression",
@@ -1383,7 +1854,12 @@ def main():
             log(f"[time] {label} train step {qstep_ms:.2f} ms, "
                 f"{q_union / qstep_ms / 1e3:.3f}M union edges/s ({q_union} "
                 f"union edges, batch {QM9_BATCH})")
-            profile_step(torch, qm9_step, qstep_ms, label)
+            prof = profile_step(torch, qm9_step, qstep_ms, label)
+            # the virtual node's broadcast backward no longer serialises
+            # on the pad graph's id (it took ~10 ms of ~32 before)
+            if prof is not None:
+                check(prof[3] < 1.0, f"{label}: indexing_backward_kernel "
+                      f"{prof[3]:.3f} ms per step")
         mark("time qm9")
         # ---- the same times at the generated-data shapes ----
         gen_t = {label: shape_times(sl.plan, sl.D, f"{label} k={sl.cfg.K}",
@@ -1417,8 +1893,8 @@ def main():
     # widths are all distinct, and of the QM9 run and KPGINPrime step
     zinc_csl_w = path_w + csl_w + fam_w
     all_launches = Counter()
-    for (vname, _), n in sum(gen_w.values(),
-                             zinc_csl_w + qm9_w + prime_w).items():
+    for (vname, _), n in sum(gen_w.values(), zinc_csl_w + qm9_w + prime_w
+                             + bf16_w).items():
         all_launches[vname] += n
     # the main path's shapes, each timed on the CSR where it launches:
     # (name suffix, label, D, error key, fused times, gather times,
@@ -1454,6 +1930,18 @@ def main():
                 shape=f"{label}, D={D}", launches=w[vname, D],
                 max_abs_err=errs_w[vname, key], ms=ms, plain_ms=plain,
                 bound_ms=bound, bound_by=by, library_ms=lib))
+    # --bf16 on the flagship: the bf16 variants where its path launches
+    # them (the byte bound at 2-byte x; torch.sparse.mm on bf16 where
+    # PyTorch takes it)
+    check(set(bf16_w) <= {(fused_b, H), (gather_b, H)},
+          f"the --bf16 run launched {dict(bf16_w)}")
+    for vname in (fused_b, gather_b):
+        ms, plain, lib, bound, by = times[vname]
+        entries.append(dict(
+            name=f"{vname} D={H} bf16", **KERNEL,
+            shape=f"flagship k={K} plan, D={H}, --bf16", launches=bf16_w[
+                vname, H], max_abs_err=errs_w[vname, H], ms=ms,
+            plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib))
     log("[phases] seconds: " + ", ".join(
         f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks, marks[1:]))
         + f"; total {marks[-1][1] - marks[0][1]:.1f}")

@@ -10,6 +10,11 @@ Three families:
 Shared machinery: the peripheral embeddings (computed once per forward),
 the virtual node, jumping knowledge and the masked norms.  Every update
 is written out of place so autograd sees each intermediate.
+
+``compute_dtype`` is the activations' dtype: the encoded nodes are cast
+to it once, after ``rd_projection`` (the JAX backbones' ``x.astype``),
+and everything downstream follows x's dtype while the parameters, the
+norms' statistics, the virtual-node state and the loss stay f32.
 """
 from __future__ import annotations
 
@@ -133,6 +138,16 @@ class _VirtualNode(nn.Module):
     def initial(self, num_graphs: int) -> torch.Tensor:
         return self.virtualnode_embedding.expand(num_graphs, -1)
 
+    @staticmethod
+    def broadcast(vn: torch.Tensor, batch: GraphBatch, dtype) -> torch.Tensor:
+        """Each node's row of the per-graph state ``vn``, in ``dtype``.
+        ``F.embedding``, not ``vn[ids]``: every padding node reads the pad
+        graph's row, and the indexing gather's backward serialises on
+        that one id on the card (10.1 of ~32 device ms per QM9 step,
+        PERF.md §5); the embedding backward sums repeated ids in
+        parallel."""
+        return F.embedding(batch.node_graph_ids.long(), vn).to(dtype)
+
     def update(self, layer: int, h_prev, vn, batch: GraphBatch, train: bool,
                residual: bool, drop_prob: float, generator) -> torch.Tensor:
         pooled = segment_sum(
@@ -179,12 +194,14 @@ class _Backbone(nn.Module):
                  residual: bool = False, use_rd: bool = False,
                  wo_peripheral_edge: bool = False,
                  wo_peripheral_configuration: bool = False,
-                 drop_prob: float = 0.1):
+                 drop_prob: float = 0.1,
+                 compute_dtype: str = "float32"):
         super().__init__()
         H, L = hidden_size, num_layer
         self.H, self.K, self.L = H, K, L
         self.JK, self.residual, self.use_rd = JK, residual, use_rd
         self.drop_prob = drop_prob
+        self.compute_dtype = getattr(torch, compute_dtype)
         self.init_encoder = init_encoder
         if use_rd:
             self.rd_projection = TorchLinear(1, H)
@@ -202,14 +219,16 @@ class _Backbone(nn.Module):
                                        H)
 
     def _inputs(self, batch: GraphBatch, hop_major: bool):
-        """(x, peripheral, vn): the encoded nodes, the peripheral
-        embedding ((K, N, W) with ``hop_major``: one transpose per
-        forward) and the initial virtual-node state (or None)."""
+        """(x, peripheral, vn): the encoded nodes in the compute dtype,
+        the peripheral embedding in the same dtype ((K, N, W) with
+        ``hop_major``: one transpose per forward) and the initial
+        virtual-node state (or None)."""
         x = self.init_encoder(batch)
         if x.dim() == 3 and x.shape[1] == 1:
             x = x[:, 0]
         if self.use_rd and batch.rd is not None:
             x = x + self.rd_projection(batch.rd)
+        x = x.to(self.compute_dtype)
         peripheral = self.peripheral(batch, self.K).to(x.dtype)
         if hop_major:
             peripheral = peripheral.transpose(0, 1)
@@ -229,7 +248,7 @@ class _Backbone(nn.Module):
         for l in layers:                                    # noqa: E741
             pre = h_list[l]
             if vn_mod is not None:
-                h_list[l] = pre + vn[batch.node_graph_ids].to(pre.dtype)
+                h_list[l] = pre + vn_mod.broadcast(vn, batch, pre.dtype)
             h = layer_call(l, h_list[l])
             h = _apply_norm(getattr(self, f"norm{l}"), h, batch, train)
             if always_drop or l != L - 1:

@@ -1,8 +1,9 @@
 """Typed model configuration and the model factory (counterpart of
 kpgnn_tpu/models/factory.py).  Every family of ``MODEL_NAMES`` builds:
 KPGINPlus on GNNPlus, KPGINPrime on GNNPrime, KPGCN, KPGIN and
-KPGraphSAGE on GNN, under each of the four task heads.  bf16 compute is
-not ported yet and raises."""
+KPGraphSAGE on GNN, under each of the four task heads.
+``compute_dtype="bfloat16"`` (``--bf16``) runs the activations in bf16
+with f32 parameters, as the JAX factory does."""
 from __future__ import annotations
 
 import dataclasses
@@ -75,11 +76,6 @@ class ModelConfig:
             raise ValueError("KPGINPlus needs num_layer >= K")
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet "
-                               "(ROADMAP.md, Queue 1)")
-
-
 def _make_encoder(cfg: ModelConfig) -> nn.Module:
     kind, arg = cfg.input_encoder
     if kind == "embedding":
@@ -96,8 +92,8 @@ def make_model(cfg: ModelConfig) -> nn.Module:
     uninitialized until ``nn.inits.init_parameters(model, seed)``.  As in
     the JAX factory, ``cfg.eps`` reaches no layer: GIN layers start from
     eps 0 (a parameter with ``train_eps``)."""
-    if cfg.compute_dtype != "float32":
-        raise _not_ported(f"compute_dtype {cfg.compute_dtype!r}")
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
     layer_fn = make_gnn_layer(
         cfg.model_name, cfg.hidden_size, cfg.K, num_layer=cfg.num_layer,
         num_hop1_edge=cfg.num_hop1_edge, num_pe=cfg.max_pe_num,
@@ -112,7 +108,7 @@ def make_model(cfg: ModelConfig) -> nn.Module:
         residual=cfg.residual, use_rd=cfg.use_rd,
         wo_peripheral_edge=cfg.wo_peripheral_edge,
         wo_peripheral_configuration=cfg.wo_peripheral_configuration,
-        drop_prob=cfg.drop_prob)
+        drop_prob=cfg.drop_prob, compute_dtype=cfg.compute_dtype)
     if cfg.model_name == "KPGINPlus":
         backbone = GNNPlus(**common)
     elif cfg.model_name == "KPGINPrime":

@@ -12,7 +12,10 @@ from .inits import fan_in_bound, uniform_
 
 
 class TorchLinear(nn.Module):
-    """Linear layer with nn.Linear's default init from a generator."""
+    """Linear layer with nn.Linear's default init from a generator.  The
+    f32 parameters are cast to x's dtype at use, so a bf16 activation
+    gets a bf16 product (the JAX module's ``x @ kernel.astype(x.dtype)``)
+    while the parameters stay f32."""
 
     def __init__(self, in_features: int, out_features: int):
         super().__init__()
@@ -25,7 +28,7 @@ class TorchLinear(nn.Module):
         uniform_(self.bias, bound, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 class MLP(nn.Module):

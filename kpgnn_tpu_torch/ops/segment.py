@@ -13,13 +13,19 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
+    """Sums of rows by segment id, in data's dtype.  Floats narrower than
+    f32 (bf16) accumulate in f32 and are cast back once, as the JAX
+    package's one-hot segment sums do."""
+    acc = (torch.float32 if data.is_floating_point()
+           and data.element_size() < 4 else data.dtype)
     out = torch.zeros((num_segments,) + tuple(data.shape[1:]),
-                      dtype=data.dtype, device=data.device)
-    return out.index_add_(0, segment_ids.long(), data)
+                      dtype=acc, device=data.device)
+    return out.index_add_(0, segment_ids.long(), data.to(acc)).to(data.dtype)
 
 
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
@@ -91,13 +97,18 @@ def khop_aggregate(x: torch.Tensor,             # (N, K, D)
     ``mean`` divides by the receiver's union in-degree over real edges
     (``edge_mask``), whatever the hop mask.  ``max`` takes the masked
     messages: a union edge dead at hop k gives a literal 0.0, padded
-    edges are left out, and a receiver without a union edge reads 0."""
-    msg = x[senders.long()] + edge_emb
+    edges are left out, and a receiver without a union edge reads 0.
+    The sender rows are gathered with ``F.embedding``, not ``x[senders]``:
+    a batch's padded edges all start at one node, and the indexing
+    gather's backward serialises on a repeated id on the card (545 of
+    584 device ms per flagship coo step, PERF.md §5)."""
+    n = x.shape[0]
+    msg = F.embedding(senders.long(), x.reshape(n, -1)).reshape(
+        (-1,) + tuple(x.shape[1:])) + edge_emb
     if scale is not None:
         msg = msg * scale[..., None]
     msg = torch.where((edge_attr > 0)[..., None], msg,
                       torch.zeros((), dtype=msg.dtype, device=msg.device))
-    n = x.shape[0]
     if aggr == "add":
         return segment_sum(msg, receivers, n)
     if aggr == "mean":

@@ -25,7 +25,11 @@ Precision: the port never copies the JAX wrapper's bf16 down-cast of the
 node table (a TPU MXU artifact): an f32 model stays f32 through the
 kernel.  Matmuls here run in full f32 as long as
 ``torch.backends.cuda.matmul.allow_tf32`` is False (the entry points set
-it, and ``torch.backends.cudnn.allow_tf32``, to False).
+it, and ``torch.backends.cudnn.allow_tf32``, to False).  A bf16 model
+(``--bf16``) feeds the kernel's bf16 variants: x and the gradient enter
+as bf16, the edge tables stay f32 parameters, the kernel sums in f32 and
+the result is cast back to bf16 (kpgnn_tpu/ops/pallas_spmm.py:854-873);
+the table gradients ``counts.T @ g`` are taken in f32.
 """
 from __future__ import annotations
 
@@ -403,9 +407,16 @@ gather_segment_sum.variant_launches = collections.Counter()
 gather_segment_sum.width_launches = collections.Counter()
 
 
+def _grad_gather(csr: HopCSR, g: torch.Tensor, dtype) -> torch.Tensor:
+    """dx: the kernel over the transposed CSR on the gradient in x's
+    dtype (a bf16 x takes the bf16 variant, as the TPU kernel stores its
+    input in bf16), cast back to that dtype."""
+    return csr.gather(g.to(dtype).contiguous()).to(dtype)
+
+
 class _GatherSegment(torch.autograd.Function):
     """The kernel over ``fwd``; its gradient is the same kernel over the
-    transposed CSR ``bwd``, cast back to x's dtype
+    transposed CSR ``bwd`` in x's dtype, cast back to it
     (kpgnn_tpu/ops/pallas_spmm.py:766-793)."""
 
     @staticmethod
@@ -416,15 +427,16 @@ class _GatherSegment(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.bwd.gather(g.contiguous()).to(ctx.x_dtype), None, None
+        return _grad_gather(ctx.bwd, g, ctx.x_dtype), None, None
 
 
 class _FusedKHop(torch.autograd.Function):
     """Gather plus edge-embedding term in one kernel launch over
-    ``plan.fwd``.  dx is the plain kernel over ``plan.bwd``; the term is
-    ``counts @ table`` per hop, so the table gradients are
+    ``plan.fwd``.  dx is the plain kernel over ``plan.bwd`` in x's dtype;
+    the term is ``counts @ table`` per hop, so the table gradients are
     ``counts1.T @ g[hop 0]`` and ``countsk_hm.T @ g[hops 1..]``, one
-    full-f32 matmul each (row 0 is exactly 0: column 0 of the counts is)."""
+    full-f32 matmul each on the f32 gradient (row 0 is exactly 0: column
+    0 of the counts is)."""
 
     @staticmethod
     def forward(ctx, x, table1, tablek, plan: KHopPlan):
@@ -438,10 +450,10 @@ class _FusedKHop(torch.autograd.Function):
     def backward(ctx, g):
         plan = ctx.plan
         n = plan.counts1.shape[0]
-        g = g.contiguous()
+        g = g.float().contiguous()
         dx = dt1 = dtk = None
         if ctx.needs_input_grad[0]:
-            dx = plan.bwd.gather(g).to(ctx.x_dtype)
+            dx = _grad_gather(plan.bwd, g, ctx.x_dtype)
         if ctx.needs_input_grad[1]:
             dt1 = plan.counts1.t() @ g[:n]
         if ctx.has_k and ctx.needs_input_grad[2]:

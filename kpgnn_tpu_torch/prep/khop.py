@@ -1,8 +1,9 @@
 """Offline k-hop neighborhood extraction (SPD and GD kernels).
 
-Counterpart of kpgnn_tpu/prep/khop.py, numpy path only: the C++ fast
-path (prep/native.py) and the on-disk cache (prep/runner.py) are not
-ported yet (ROADMAP.md, Queue 1).
+Counterpart of kpgnn_tpu/prep/khop.py.  Graphs of at most
+``native.NATIVE_MAX_NODES`` nodes take the C++ path (prep/native.py)
+when it builds, as in the JAX package; both paths give the same arrays.
+The cached, pooled runner is prep/runner.py.
 
 Re-derivation of the reference preprocessing semantics
 (reference: data_utils.py:20-241) as vectorized numpy over dense per-graph
@@ -226,12 +227,21 @@ def extract_khop(
     # only when inputs are duplicate-free, which all benchmark data is)
     edge_attr_adj[edge_index[0], edge_index[1]] = edge_attr
 
-    powers = adjacency_powers(adj, K)
-    if cfg.kernel == "gd":
-        hop_mats = powers
-        union = (powers.sum(axis=0) > 0).astype(np.int64)
+    from . import native
+    use_native = native.available() and num_nodes <= native.NATIVE_MAX_NODES
+    if use_native:
+        powers = native.adjacency_powers(adj, K)
+        if cfg.kernel == "gd":
+            hop_mats, union = powers, native.gd_union(powers)
+        else:
+            hop_mats, union = native.spd_mask(powers)
     else:
-        hop_mats, union = _spd_mask(powers)
+        powers = adjacency_powers(adj, K)
+        if cfg.kernel == "gd":
+            hop_mats = powers
+            union = (powers.sum(axis=0) > 0).astype(np.int64)
+        else:
+            hop_mats, union = _spd_mask(powers)
 
     u, v = np.nonzero(union)          # row-major == upstream edge iteration
     E = u.shape[0]
@@ -251,7 +261,13 @@ def extract_khop(
     if cfg.peripheral_enabled:
         pe_list, pc_list = [], []
         for k in range(K):
-            em, cm = _peripheral_for_hop(edge_attr_adj, hop_mats[k], cfg)
+            if use_native:
+                em, cm = native.peripheral_hop(
+                    edge_attr_adj, hop_mats[k], cfg.max_hop_num,
+                    cfg.max_edge_type, cfg.max_edge_count,
+                    cfg.max_distance_count)
+            else:
+                em, cm = _peripheral_for_hop(edge_attr_adj, hop_mats[k], cfg)
             pe_list.append(em)
             pc_list.append(cm)
         per_e = np.stack(pe_list, axis=1).astype(np.int32)   # (N, K, T, 2)
@@ -313,7 +329,7 @@ def apply_ablation_clamps(
 def extract_graphs(raw_graphs, cfg: KHopConfig) -> List[Graph]:
     """``extract_khop`` over a list of raw graph dicts (num_nodes,
     edge_index and optional edge_attr / x / y / z / pos), serially and
-    without a cache."""
+    without a cache (``runner.preprocess_graphs`` adds both)."""
     return [extract_khop(num_nodes=raw["num_nodes"],
                          edge_index=raw["edge_index"],
                          edge_attr=raw.get("edge_attr"), cfg=cfg,

@@ -6,14 +6,18 @@ The argparse surface is the JAX package's, flag for flag, plus
 flag's default, as in the JAX CLI: plain PyTorch ``index_add_``
 aggregation, as the JAX COO backend is plain XLA), ``pallas`` (the
 hand-written CUDA gather/segment-sum) or ``dense`` (per-graph hop tiles,
-batched matmuls on cuBLAS; ``--dense`` is its shorthand).  Options whose
-code paths are not ported yet raise ``NotImplementedError`` naming
-ROADMAP.md instead of being ignored: ``--backend banded``, ``--bf16``,
-``--parallel``, ``--resident on``, ``--load_path``, ``--save_checkpoints``,
-``--profile_dir``.  The prep cache (``--cache_dir``, ``--reprocess``) and
-the prep worker pool (``--num_workers``) are not ported: prep runs
-serially, uncached.  ``--matmul_precision`` has nothing to select: the
-port always runs matmuls in full f32.
+batched matmuls on cuBLAS; ``--dense`` is its shorthand).  ``--bf16``
+runs the activations in bf16 (parameters, norm statistics and losses
+stay f32; the kernel takes its bf16 variants).  ``--resident``
+(auto|on|off) keeps dense and COO datasets on the device
+(``train.loop.resident_rule``).  ``prepare`` caches prep under
+``--cache_dir`` (default ``<dataset_dir>/cache``, or
+``KPGNN_CACHE_DIR``), ``--reprocess`` rebuilds it and ``--num_workers``
+> 1 preps on a pool of processes.  Options whose code paths are not
+ported yet raise ``NotImplementedError`` naming ROADMAP.md instead of
+being ignored: ``--backend banded``, ``--parallel``, ``--load_path``,
+``--save_checkpoints``, ``--profile_dir``.  ``--matmul_precision`` has
+nothing to select: the port runs f32 matmuls in full f32.
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ from typing import List, Optional
 import torch
 
 from ..models.factory import ModelConfig, make_model
-from ..prep.khop import KHopConfig, apply_ablation_clamps, extract_graphs
+from ..prep.khop import KHopConfig, apply_ablation_clamps
+from ..prep.runner import preprocess_graphs
 from ..train.config import TrainConfig
 from ..train.loader import GraphLoader
 from ..train.loop import Trainer
@@ -117,16 +122,19 @@ def base_parser(description: str, **defaults) -> argparse.ArgumentParser:
                         "hop tiles, batched matmuls); 'banded' is not "
                         "ported yet")
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 activations (not ported yet)")
+                   help="bfloat16 activations; parameters, norm statistics "
+                        "and losses stay f32")
     p.add_argument("--matmul_precision", type=str,
                    default=d.get("matmul_precision", "default"),
                    choices=("default", "high", "highest"),
-                   help="accepted for flag parity; the port always runs "
+                   help="accepted for flag parity; the port runs f32 "
                         "matmuls in full f32")
     p.add_argument("--resident", type=str, default="auto",
                    choices=("auto", "on", "off"),
-                   help="device-resident epochs (not ported yet: 'on' "
-                        "raises, 'auto' and 'off' train per batch)")
+                   help="device-resident epochs for dense and coo "
+                        "loaders: 'auto' when the store fits "
+                        "KPGNN_RESIDENT_MAX_BYTES (coo: and its slots are "
+                        "at least half full)")
     p.add_argument("--parallel", nargs="?", const="data", default=None,
                    choices=("data", "node"),
                    help="multi-device training (not ported yet)")
@@ -200,12 +208,8 @@ def check_ported(args) -> None:
     if backend(args) not in ("coo", "pallas", "dense"):
         unported.append(f"--backend {backend(args)} (coo, pallas and dense "
                         "are ported)")
-    if args.bf16:
-        unported.append("--bf16")
     if args.parallel:
         unported.append("--parallel")
-    if args.resident == "on":
-        unported.append("--resident on")
     if args.load_path or args.save_checkpoints:
         unported.append("checkpoints")
     if args.profile_dir:
@@ -234,9 +238,15 @@ def setup_run(args, dataset: str):
     return save_dir, logger
 
 
-def prepare(raw_graphs, args):
-    """k-hop preprocessing plus the runtime ablation clamps."""
-    graphs = extract_graphs(raw_graphs, khop_config(args))
+def prepare(raw_graphs, args, cache_name: str):
+    """k-hop preprocessing, cached under ``cache_name`` in ``--cache_dir``
+    (default ``<dataset_dir>/cache``), plus the runtime ablation
+    clamps."""
+    graphs = preprocess_graphs(
+        raw_graphs, khop_config(args),
+        cache_dir=args.cache_dir or os.path.join(args.dataset_dir, "cache"),
+        name=cache_name, num_workers=args.num_workers,
+        reprocess=args.reprocess)
     if args.wo_path_encoding or args.wo_edge_feature:
         graphs = [apply_ablation_clamps(g, args.wo_path_encoding,
                                         args.wo_edge_feature)
@@ -277,7 +287,7 @@ def fit_runs(args, splits, mcfg: ModelConfig, loss: str, logger,
         trainer = Trainer(make_model(mcfg),
                           train_config(args, loss, stop_at_min_lr=True),
                           loss=loss, node_level=node_level, logger=logger,
-                          device=args.device)
+                          device=args.device, resident=args.resident)
         _, res = trainer.fit(tl, vl, el, seed=args.seed + run,
                              epoch_callback=epoch_callback)
         results.append(res["best_test"])

@@ -51,7 +51,8 @@ def datasets(args):
     for split in data.values():
         for g in split:
             g["y"] = np.array([g["y"][t] / ystd], np.float32)
-    return {k: prepare(v, args) for k, v in data.items()}
+    return {k: prepare(v, args, f"count_{k}_{args.n_graphs}")
+            for k, v in data.items()}
 
 
 def config(args):

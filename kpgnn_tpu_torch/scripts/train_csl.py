@@ -58,7 +58,7 @@ def main(argv=None, epoch_callback=None):
     raw = generate_csl()
     for g in raw:
         g["x"] = np.ones((g["num_nodes"], 1), dtype=np.float32)
-    graphs = prepare(raw, args)
+    graphs = prepare(raw, args, "CSL")
     labels = [int(g.y[0]) for g in graphs]
 
     mcfg = model_config(args, input_encoder=("linear", 1),
@@ -76,7 +76,7 @@ def main(argv=None, epoch_callback=None):
         trainer = Trainer(model, train_config(args, "cross_entropy"),
                           loss="cross_entropy", metric_mode="max",
                           use_scheduler=False, logger=logger,
-                          device=args.device)
+                          device=args.device, resident=args.resident)
         _, res = trainer.fit(tl, vl, el, seed=args.seed + fold,
                              epoch_callback=epoch_callback)
         acc = res["best_test"].get("accuracy", 0.0)

@@ -45,7 +45,8 @@ def datasets(args):
         for g in split:
             g["y"] = np.array([g["y"][args.task]], np.float32)
             g.pop("node_y", None)
-    return {k: prepare(v, args) for k, v in data.items()}
+    return {k: prepare(v, args, f"gprop_{k}_s{args.data_scale}")
+            for k, v in data.items()}
 
 
 def config(args):

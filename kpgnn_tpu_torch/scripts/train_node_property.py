@@ -46,7 +46,8 @@ def datasets(args):
     for split in data.values():
         for g in split:
             g["y"] = g.pop("node_y")[:, t:t + 1].astype(np.float32)
-    return {k: prepare(v, args) for k, v in data.items()}
+    return {k: prepare(v, args, f"nprop_{k}_s{args.data_scale}")
+            for k, v in data.items()}
 
 
 def config(args):

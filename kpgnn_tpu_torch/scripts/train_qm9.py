@@ -88,7 +88,8 @@ def main(argv=None, epoch_callback=None):
     args = parser().parse_args(argv)
     resolve_device(args.device)
     save_dir, logger = setup_run(args, f"QM9t{args.task}")
-    (train, val, test), std = task_splits(prepare(load(args), args), args)
+    (train, val, test), std = task_splits(
+        prepare(load(args), args, "QM9"), args)
 
     mcfg = model_config(args, input_encoder=("qm9", int(args.use_pos)),
                         task="graph_regression", output_size=1)
@@ -100,7 +101,8 @@ def main(argv=None, epoch_callback=None):
     trainer = Trainer(make_model(mcfg),
                       train_config(args, "mse", stop_at_min_lr=True),
                       loss="mse", metric_mode="min", eval_metric="mae",
-                      logger=logger, device=args.device)
+                      logger=logger, device=args.device,
+                      resident=args.resident)
     _, res = trainer.fit(tl, vl, el, seed=args.seed,
                          epoch_callback=epoch_callback)
     # MAE in dataset units, normalized, and converted back to the

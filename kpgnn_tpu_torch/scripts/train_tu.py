@@ -5,14 +5,15 @@ Two protocols:
     <name>.txt): the 10-fold index files, ``--folds`` of them;
   * stratified k-fold (standard-format TU datasets such as DD), train and
     val merged.
-Each fold trains per batch with the LR times ``--factor`` every 50
-epochs, and records the test accuracy at every epoch; the run reports
-the mean of each fold's best, the best of the epoch-mean curve, and the
-final epoch's.  The hidden size is rounded up to a multiple of K.
+Each fold trains with the LR times ``--factor`` every 50 epochs, and
+records the test accuracy at every epoch; the run reports the mean of
+each fold's best, the best of the epoch-mean curve, and the final
+epoch's.  The hidden size is rounded up to a multiple of K.
 
-The JAX script trains ``--dense`` folds device-resident by default; the
-port has no resident epochs yet, so ``--resident auto`` and ``off`` both
-train per batch and ``--resident on`` raises.  ``--device`` defaults to
+As in the JAX script, ``--dense`` folds train device-resident unless
+``--resident off`` (train/resident.py: the fold's train and test sets
+live on the device, each step gathers its batch there); other backends
+train per batch.  ``--device`` defaults to
 cuda (without CUDA it raises unless ``--device cpu`` is given);
 ``--backend pallas`` runs the aggregation through the CUDA kernel.  The
 TU files are not in the repository; ``--dataset_dir`` points at a tree
@@ -36,6 +37,8 @@ from ..train.kfold import k_fold
 from ..train.loader import GraphLoader
 from ..train.loop import evaluate, resolve_device, train_epoch
 from ..train.lr import StepDecay
+from ..train.resident import (build_dense_store, epoch_index_chunks,
+                              make_resident_eval, make_resident_train_epoch)
 from ..train.state import get_lr, make_optimizer, set_lr
 from .common import (backend, base_parser, loader_kwargs, model_config,
                      prepare, setup_run)
@@ -75,7 +78,7 @@ def load(args):
         raw, folds = load_tu_standard(args.dataset_dir, name), []
     n_tag = num_tag_classes(raw)
     n_classes = int(max(int(g["y"][0]) for g in raw)) + 1
-    graphs = prepare(one_hot_x(raw, n_tag), args)
+    graphs = prepare(one_hot_x(raw, n_tag), args, name)
     if folds:
         folds = folds[:args.folds]
     else:                   # the reference merges train and val
@@ -96,27 +99,54 @@ def config(args, n_tag, n_classes):
 
 def run_fold(mcfg, args, logger, fold, train_graphs, test_graphs, lk,
              epoch_callback=None):
-    """One fold per batch: step decay by ``--factor`` every 50 epochs and
-    the test accuracy of every epoch.  The model and the shuffle start
-    from seed ``--seed`` + fold.  Returns the accuracies, (epochs,)."""
+    """One fold: step decay by ``--factor`` every 50 epochs and the test
+    accuracy of every epoch, resident under ``--dense`` unless
+    ``--resident off`` (the JAX script's rule), else per batch.  The
+    model and the shuffle start from seed ``--seed`` + fold (the
+    resident order is the per-batch loader's).  Returns the accuracies,
+    (epochs,)."""
     device = resolve_device(args.device)
     seed = args.seed + fold
-    tl = GraphLoader(train_graphs, args.batch_size, shuffle=True, seed=seed,
-                     **lk)
-    test = [b.to(device)
-            for b in GraphLoader(test_graphs, args.batch_size, **lk)]
+    B = args.batch_size
     model = init_parameters(make_model(mcfg), seed).to(device)
     opt = make_optimizer(model.parameters(), args.lr, args.l2_wd)
     generator = torch.Generator(device=device).manual_seed(seed)
+    if lk["mode"] == "dense" and args.resident != "off":
+        stores = [build_dense_store(gs, lk["n_slot"], lk["v1"], lk["vk"],
+                                    device=device)
+                  for gs in (train_graphs, test_graphs)]
+        test_chunks = epoch_index_chunks(np.arange(len(test_graphs)), B,
+                                         stores[1].num_graphs)
+        perm = np.random.default_rng(seed)
+        train_ep = make_resident_train_epoch(model, opt, "cross_entropy")
+        test_ep = make_resident_eval(model, "cross_entropy")
+        logger.info(f"fold {fold}: resident stores on {device}, "
+                    f"{stores[0].nbytes() + stores[1].nbytes()} B")
+
+        def train_one():
+            return train_ep(stores[0], epoch_index_chunks(
+                perm.permutation(len(train_graphs)), B,
+                stores[0].num_graphs), generator)
+
+        def test_one():
+            return test_ep(stores[1], test_chunks)
+    else:
+        tl = GraphLoader(train_graphs, B, shuffle=True, seed=seed, **lk)
+        test = [b.to(device) for b in GraphLoader(test_graphs, B, **lk)]
+
+        def train_one():
+            return train_epoch(model, opt, (b.to(device) for b in tl),
+                               "cross_entropy", generator)
+
+        def test_one():
+            return evaluate(model, test, "cross_entropy")
     decay = StepDecay(every=50, factor=args.factor)
     accs = []
     for epoch in range(args.num_epochs):
         t0 = time.time()
         set_lr(opt, decay.lr_at(args.lr, epoch))
-        loss, step_losses = train_epoch(
-            model, opt, (b.to(device) for b in tl), "cross_entropy",
-            generator)
-        accs.append(evaluate(model, test, "cross_entropy")["accuracy"])
+        loss, step_losses = train_one()
+        accs.append(test_one()["accuracy"])
         row = {"epoch": epoch, "train_loss": loss, "lr": get_lr(opt),
                "seconds": time.time() - t0, "step_losses": step_losses,
                "test_accuracy": accs[-1]}

@@ -42,7 +42,8 @@ def main(argv=None, epoch_callback=None):
 
     splits = load_zinc(os.path.join(args.dataset_dir, "ZINC"),
                        subset=not args.full)
-    prepped = {k: prepare(v, args) for k, v in splits.items()}
+    prepped = {k: prepare(v, args, f"ZINC_{k}")
+               for k, v in splits.items()}
     mcfg = model_config(args, input_encoder=("embedding", 21),
                         task="graph_regression", output_size=1)
     maes = []

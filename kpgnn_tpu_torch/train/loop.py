@@ -1,6 +1,6 @@
 """Train/eval steps and the epoch-level Trainer (counterpart of
-kpgnn_tpu/train/loop.py, per-batch path; the resident, parallel and
-checkpoint paths are not ported yet).
+kpgnn_tpu/train/loop.py: the per-batch and the resident paths; the
+parallel and checkpoint paths are not ported yet).
 
 Losses and metrics are computed under the batch masks: padded graph and
 node slots add zero to sums and to counts.
@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -150,6 +151,40 @@ def summarize_eval_sums(sums: Dict[str, np.ndarray]) -> Dict[str, float]:
     return out
 
 
+RESIDENT_MAX_BYTES = 4 << 30        # KPGNN_RESIDENT_MAX_BYTES's default
+
+
+def resident_rule(resident: str, loader) -> Tuple[bool, str]:
+    """Whether ``loader``'s epochs run resident, and why (the JAX
+    Trainer's rule, kpgnn_tpu/train/loop.py:336-365).  Only dense and
+    COO loaders have a store.  "on" takes it, "off" never does; "auto"
+    takes a dense store that fits ``KPGNN_RESIDENT_MAX_BYTES`` (default
+    4 GiB), and a COO store only when it fits and both its node and its
+    edge slots are at least half full on average (per-graph slots of a
+    skewed dataset waste the compute COO's compact packing saves)."""
+    from .resident import coo_store_nbytes, store_nbytes
+
+    mode = getattr(loader, "mode", None)
+    if resident == "off" or mode not in ("dense", "coo"):
+        return False, f"--resident {resident}, loader mode {mode}"
+    if resident == "on":
+        return True, "--resident on"
+    cap = float(os.environ.get("KPGNN_RESIDENT_MAX_BYTES",
+                               RESIDENT_MAX_BYTES))
+    gs, node_y = loader.graphs, loader.y_is_node_level
+    if mode == "dense":
+        nbytes = store_nbytes(gs, loader.n_slot, node_y)
+        return nbytes <= cap, f"auto: dense store {nbytes} B, cap {cap:.0f}"
+    ns = max(g.num_nodes for g in gs)
+    es = max(g.num_edges for g in gs)
+    nbytes = coo_store_nbytes(gs, ns, es, node_y)
+    fill_n = sum(g.num_nodes for g in gs) / (len(gs) * ns)
+    fill_e = sum(g.num_edges for g in gs) / max(len(gs) * es, 1)
+    return (nbytes <= cap and min(fill_n, fill_e) >= 0.5,
+            f"auto: COO store {nbytes} B, cap {cap:.0f}, node slots "
+            f"{fill_n:.3f} full, edge slots {fill_e:.3f} full (needs 0.5)")
+
+
 @dataclasses.dataclass
 class Trainer:
     """Epoch loop with plateau LR on the validation metric, best-val
@@ -160,7 +195,10 @@ class Trainer:
     mode only, so "max" requires ``use_scheduler=False``.
     ``eval_metric`` adds an error to every evaluation (``evaluate``'s
     ``metric``: QM9 trains on MSE and reports the MAE).  ``node_level``
-    takes the loss and metrics over the real nodes (node heads)."""
+    takes the loss and metrics over the real nodes (node heads).
+    ``resident`` ("auto", "on" or "off", ``resident_rule``) keeps a dense
+    or COO dataset on the device and gathers each batch there
+    (train/resident.py), in the loader's shuffle order."""
 
     model: torch.nn.Module
     cfg: TrainConfig
@@ -171,6 +209,7 @@ class Trainer:
     eval_metric: str = "same"
     logger: Optional[object] = None
     device: str = "cuda"
+    resident: str = "auto"
 
     def log(self, msg):
         if self.logger:
@@ -202,11 +241,66 @@ class Trainer:
         def on_device(loader):
             return (b.to(device) for b in loader)
 
+        use_resident, why = resident_rule(self.resident, train_loader)
+        stores: Dict[int, object] = {}
+        if use_resident:
+            from .resident import (build_coo_store, build_dense_store,
+                                   epoch_index_chunks, make_resident_eval,
+                                   make_resident_train_epoch)
+            coo = train_loader.mode == "coo"
+            if coo:         # one slot size over every split's COO store
+                slot_graphs = [g for l in (train_loader, val_loader,
+                                           test_loader)
+                               if l is not None
+                               and getattr(l, "mode", None) == "coo"
+                               for g in l.graphs]
+                n_slot = max(g.num_nodes for g in slot_graphs)
+                e_slot = max(g.num_edges for g in slot_graphs)
+
+            def store_for(loader):
+                if id(loader) not in stores:
+                    stores[id(loader)] = (
+                        build_coo_store(loader.graphs, n_slot, e_slot,
+                                        loader.y_is_node_level, device)
+                        if coo else
+                        build_dense_store(loader.graphs, loader.n_slot,
+                                          loader.v1, loader.vk,
+                                          loader.y_is_node_level, device))
+                return stores[id(loader)]
+            train_store = store_for(train_loader)
+            resident_epoch = make_resident_train_epoch(
+                model, opt, self.loss, self.node_level)
+            resident_eval = make_resident_eval(
+                model, self.loss, self.node_level, self.eval_metric)
+            self.log(f"resident store: {len(train_loader.graphs)} graphs "
+                     f"on {device}, {train_store.nbytes()} B, "
+                     f"{train_loader.mode} slots of {train_store.n_slot} "
+                     f"nodes, one gathered batch a step ({why})")
+        elif getattr(train_loader, "mode", None) in ("dense", "coo"):
+            self.log(f"per-batch epochs ({why})")
+
         def run_eval(loader):
+            if use_resident and getattr(loader, "mode", None) \
+                    == train_loader.mode:
+                store = store_for(loader)
+                return resident_eval(store, epoch_index_chunks(
+                    np.arange(len(loader.graphs)), loader.batch_size,
+                    store.num_graphs))
             if id(loader) not in cached:        # eval batches stay resident
                 cached[id(loader)] = list(on_device(loader))
             return evaluate(model, cached[id(loader)], self.loss,
                             self.eval_metric, self.node_level)
+
+        def run_train():
+            if not use_resident:
+                return train_epoch(model, opt, on_device(train_loader),
+                                   self.loss, generator, self.node_level)
+            G = len(train_loader.graphs)
+            order = (train_loader.rng.permutation(G)
+                     if train_loader.shuffle else np.arange(G))
+            return resident_epoch(train_store, epoch_index_chunks(
+                order, train_loader.batch_size, train_store.num_graphs),
+                generator)
 
         sched = ReduceLROnPlateau(factor=self.cfg.factor,
                                   patience=self.cfg.patience,
@@ -221,9 +315,7 @@ class Trainer:
         for epoch in range(self.cfg.num_epochs):
             try:
                 t0 = time.time()
-                train_loss, step_losses = train_epoch(
-                    model, opt, on_device(train_loader), self.loss,
-                    generator, self.node_level)
+                train_loss, step_losses = run_train()
                 row = {"epoch": epoch, "train_loss": train_loss,
                        "lr": get_lr(opt), "seconds": time.time() - t0,
                        "step_losses": step_losses}

@@ -166,7 +166,7 @@ def test_train_csl_main_on_cpu(tmp_path, backend):
     rows = []
     acc = train_csl.main(
         ["--device", "cpu", "--backend", backend, "--save_dir",
-         str(tmp_path / "s")] + TINY,
+         str(tmp_path / "s"), "--dataset_dir", str(tmp_path)] + TINY,
         epoch_callback=lambda e, m, row: rows.append(row))
     assert 0.0 <= acc <= 1.0
     # 150 graphs, fold 0 of 10: 120 train graphs in 4 batches of 32
@@ -184,4 +184,5 @@ def test_train_csl_refuses_max_on_the_kernel_backend(tmp_path):
     with pytest.raises(SystemExit, match="--aggr max"):
         train_csl.main(["--device", "cpu", "--backend", "pallas",
                         "--model_name", "KPGraphSAGE", "--aggr", "max",
-                        "--save_dir", str(tmp_path / "s")] + TINY)
+                        "--save_dir", str(tmp_path / "s"),
+                        "--dataset_dir", str(tmp_path)] + TINY)

@@ -138,3 +138,55 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         cuda_lib.build("gather_segment_sum.cu")
     assert not any(tmp_path.iterdir())      # nothing half-built left
+
+
+def test_isolation_checks_cover_the_bf16_resident_and_prep_modules():
+    """The synthetic generators, the native prep and its C++ source, the
+    prep runner and the resident stores are among the sources both
+    isolation checks read and import."""
+    sources = {os.path.relpath(p, REPO) for p in port_sources()}
+    for mod in ("data/synthetic.py", "prep/native.py", "prep/runner.py",
+                "train/resident.py"):
+        assert os.path.join("kpgnn_tpu_torch", mod) in sources, mod
+    from kpgnn_tpu_torch.prep import native
+    assert os.path.isfile(native.SOURCE)
+    assert native.SOURCE.startswith(os.path.join(PKG, ""))
+
+
+def test_native_prep_builds_from_the_ports_source_with_jax_blocked(
+        tmp_path):
+    """A fresh build, in a process where the JAX package cannot be
+    imported, compiles the port's copy of the C++ source into the given
+    build root and loads that library, never the JAX package's."""
+    code = (
+        "import sys\n"
+        f"for m in {BANNED!r}: sys.modules[m] = None\n"
+        "from kpgnn_tpu_torch.prep import native\n"
+        f"native.BUILD_ROOT = {str(tmp_path)!r}\n"
+        "assert native.available(), native.BUILD_ERROR\n"
+        "assert native.BUILD_SECONDS > 0\n"
+        "print(native._lib._name)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    from kpgnn_tpu_torch.prep import native
+    assert proc.stdout.strip() == os.path.join(
+        str(tmp_path), native.source_hash(), "libkhop_native.so")
+
+
+def test_native_prep_without_gxx_is_unavailable(monkeypatch, tmp_path):
+    """Without g++ the build raises, nothing half-built is left, and
+    ``available()`` says False with the reason: prep takes the numpy
+    path, which gives the same graphs."""
+    from kpgnn_tpu_torch.prep import native
+
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setattr(native, "BUILD_ROOT", str(tmp_path))
+    with pytest.raises(RuntimeError, match="g\\+\\+"):
+        native.build()
+    assert not any(p.is_file() for p in tmp_path.rglob("*"))
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_failed", False)
+    monkeypatch.setattr(native, "BUILD_ERROR", None)
+    assert not native.available()
+    assert "g++" in native.BUILD_ERROR

@@ -255,8 +255,8 @@ def test_train_zinc_main_on_the_coo_backend(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--backend", "banded"],
-                                  ["--resident", "on"],
-                                  ["--bf16"], ["--parallel"]])
+                                  ["--save_checkpoints"],
+                                  ["--profile_dir", "prof"], ["--parallel"]])
 def test_train_zinc_refuses_unported_options(tmp_path, flag):
     from kpgnn_tpu_torch.scripts import train_zinc
 

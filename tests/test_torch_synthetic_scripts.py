@@ -46,7 +46,8 @@ def test_generated_data_scripts_on_cpu(tmp_path, name):
     firsts = []
     for backend in ("pallas", "coo", "dense"):
         _, rows = run(mod, TINY + extra + ["--backend", backend,
-                                           "--save_dir", str(tmp_path)])
+                                           "--save_dir", str(tmp_path),
+                                           "--dataset_dir", str(tmp_path)])
         # counting: 18 train graphs in 3 batches of 8; property: 100 in 4
         assert len(rows) == 2 and all(
             len(r["step_losses"]) == (3 if name == "counting" else 4)
@@ -58,11 +59,12 @@ def test_generated_data_scripts_on_cpu(tmp_path, name):
 
 
 @pytest.mark.parametrize("ystd", ["train", "full"])
-def test_counting_labels_follow_the_jax_script(ystd):
+def test_counting_labels_follow_the_jax_script(ystd, tmp_path):
     """y is the task's count over the train split's std (ddof 0) or the
     whole set's (ddof 1), as kpgnn_tpu/scripts/train_counting.py."""
     args = train_counting.parser().parse_args(
-        ["--n_graphs", "60", "--task", "3", "--ystd", ystd])
+        ["--n_graphs", "60", "--task", "3", "--ystd", ystd,
+         "--dataset_dir", str(tmp_path)])
     splits = train_counting.datasets(args)
     data = jcounting(60, seed=1234)
     ys = [g["y"][3] for s in data.values() for g in s]
@@ -76,10 +78,11 @@ def test_counting_labels_follow_the_jax_script(ystd):
             np.testing.assert_array_equal(a, b)
 
 
-def test_property_labels_follow_the_jax_scripts():
+def test_property_labels_follow_the_jax_scripts(tmp_path):
     """Graph property: y the task's graph label; node property: the
     task's column of the node labels, (N, 1)."""
-    argv = ["--data_scale", "0.02", "--task", "2"]
+    argv = ["--data_scale", "0.02", "--task", "2", "--dataset_dir",
+            str(tmp_path)]
     gs = train_graph_property.datasets(
         train_graph_property.parser().parse_args(argv))
     ns = train_node_property.datasets(
@@ -140,8 +143,13 @@ def test_train_tu_step_decay(tmp_path):
 
 
 def test_train_tu_refuses_resident_on(tmp_path):
+    """``--resident on`` was refused before resident epochs were ported
+    (the name stays); it now takes the resident fold under --dense, and
+    still refuses nothing."""
     write_gin_fixture(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="--resident on"):
-        train_tu.main(TINY + ["--dataset_dir", str(tmp_path), "--dense",
-                              "--resident", "on", "--save_dir",
-                              str(tmp_path / "s")])
+    acc = train_tu.main(TINY + ["--dataset_dir", str(tmp_path), "--dense",
+                                "--resident", "on", "--folds", "1",
+                                "--save_dir", str(tmp_path / "s")])
+    assert 0.0 <= acc <= 1.0
+    (log,) = (tmp_path / "s" / "train").glob("*/log.txt")
+    assert "fold 0: resident stores on cpu" in log.read_text()
