@@ -118,7 +118,40 @@ Phases, each of which fails the run loudly:
      under 1 ms in ``indexing_backward_kernel``: the virtual node's
      broadcast no longer serialises); the kernel times at the four
      generated-data shapes, and the node-property train step with its
-     profile.
+     profile; and the kernel times at the expressiveness and large shapes.
+ 10. expressiveness, checkpoints and profiling — run between 8 and 9:
+     [exp] ``train_exp`` at its defaults' width (KPGIN K=3 L=3 H=48, batch
+     128) on a 1,200-graph EXP pickle the smoke writes
+     (``write_exp_fixture``), --folds 2 --num_epochs 2, and on the same
+     graphs in CEXP's text format for one epoch, through
+     ``script_phase``; [sr25] ``train_sr`` (K=4 L=4 H=48, batch 15, 3
+     epochs) on 15 SRG(25,12,5,6) graphs in graph6
+     (``write_sr25_fixture``, the smoke's own encoder; hops 3-4 carry no
+     edge): launches and first step as above, its first evaluation
+     (batch-statistics norms) against the same weights evaluated on the
+     CPU and on a fresh card model (rtol 1e-4, the same accuracy, running
+     statistics unchanged), one step under the gradient gate;
+     [sim] ``run_simulation`` at its defaults (forward only: L fused
+     launches a forward, no gather) against the same run on the CPU (the
+     1e-8 collision threshold is below f32 rounding: a pair that collides
+     on one device only must be equal within 1e-5 of the largest |value|
+     on both), and --sweep --graphs 2 (its JSON table; one fused launch a
+     forward at each K's width, D=21 on the scalar variant); [search]
+     ``run_search --preset sr_search --limit 1``; [ckpt] the flagship
+     with --save_checkpoints for 2 epochs: best.pt equal to its epoch's
+     model, restored on the card, on the CPU and card -> CPU -> card bit
+     for bit (Adam's step counts on the CPU, the moments beside their
+     parameters), then a --load_path warm start whose first step equals
+     the CPU's warm start (rtol 1e-4); [profile] the flagship with
+     --profile_dir for 2 epochs: ``trace_summary`` finds the trace of
+     epoch 1, whose device events name the fused and the gather variant
+     as often as the launch counter counted them in that epoch, then
+     ``profile_step.main(["--stages", "resident,bf16,large"])`` exits 0
+     (its stage times and top device ops logged).  Phase 2 checks the
+     kernel at these shapes: EXP D=16 over the k=3 plan, SR25 D=12 over
+     the k=4 plan, the simulation's D=32 and the sweep's D=64/32/21/16,
+     and profile_step's large plan (D=34, scalar, 16,384 nodes; f32 sums
+     under the hub row's tolerance).
 The last lines are the card's name and power limit, a ``kernels`` JSON
 line, and ``{"ok": true, "device": {...}}``.  The ``kernels`` line has one
 entry per kernel variant, timed on the flagship plan, with the launches
@@ -127,9 +160,11 @@ shape (the flagship's D=104, CSL's D=12 over the k=4 plan, GINE's D=48
 over its hop-1 slice, QM9's D=128 over the k=8 plan, KPGINPrime-QM9's D=8
 over the k=16 plan and D=128 over its hop-1 slice, counting's D=96 over
 the k=3 plan, node property's D=128 and graph property's D=96 over
-their k=6 plans, TU's D=16 over the k=2 plan), each with the launches
-of the run that takes that shape, its error, times and bound; and the
-bf16 variants on the flagship plan with the --bf16 run's launches.
+their k=6 plans, TU's D=16 over the k=2 plan, EXP's D=16, SR25's D=12,
+the simulation's fused forward at D=32 and at each sweep width, and
+profile_step's large plan at D=34), each with the launches of the run
+that takes that shape, its error, times and bound; and the bf16
+variants on the flagship plan with the --bf16 run's launches.
 
 Tolerances: f32 gather vs plain version atol 1e-5, except the hub row,
 whose 10k-term sums may differ in summation order by up to 1e-6 of the
@@ -169,6 +204,7 @@ import json
 import math
 import os
 import pickle
+import re
 import shutil
 import subprocess
 import sys
@@ -306,6 +342,165 @@ def write_gin_fixture(root, name="MUTAG", n_graphs=188, seed=5):
             with open(os.path.join(d, "10fold_idx",
                                    f"{split}_idx-{f + 1}.txt"), "w") as fh:
                 fh.write("\n".join(map(str, idx)) + "\n")
+
+
+def write_exp_fixture(root, n_pairs=600, seed=3, txt=False):
+    """An EXP-format dataset of ``n_pairs`` consecutive pairs: a random
+    3-regular graph on n nodes (label 1) and two disjoint random 3-regular
+    graphs on n/2 nodes each (label 0), in random order within the pair,
+    n a multiple of 4 in 32..72 (EXP's node counts), every node feature
+    0.  Both graphs of a pair are 3-regular, so 1-WL gives every node one
+    colour in both.  Written as <root>/EXP/raw/GRAPHSAT.pkl, a pickle of
+    objects of a class whose module reads ``torch_geometric.data.data``
+    (registered only while dumping), with torch tensors ``x``,
+    ``edge_index`` and ``y``; or, ``txt``, as the CEXP text format
+    <root>/CEXP/GRAPHSAT.txt."""
+    import random
+    import types
+
+    import numpy as np
+    import torch
+
+    from kpgnn_tpu_torch.data.generation import random_regular_graph
+    rng = random.Random(seed)
+    graphs = []
+    for _ in range(n_pairs):
+        n = 4 * rng.randint(8, 18)
+        one = random_regular_graph(3, n, rng)
+        h = n // 2
+        two = random_regular_graph(3, h, rng) + [
+            (u + h, v + h) for u, v in random_regular_graph(3, h, rng)]
+        pair = [(n, one, 1), (n, two, 0)]
+        rng.shuffle(pair)
+        graphs += pair
+    if txt:
+        d = os.path.join(root, "CEXP")
+        os.makedirs(d, exist_ok=True)
+        lines = [str(len(graphs))]
+        for n, edges, label in graphs:
+            adj = [[] for _ in range(n)]
+            for u, v in edges:
+                adj[u].append(v)
+                adj[v].append(u)
+            lines.append(f"{n} {label}")
+            lines += [f"0 {len(a)} " + " ".join(map(str, sorted(a)))
+                      for a in adj]
+        with open(os.path.join(d, "GRAPHSAT.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        return graphs
+    mod_names = ("torch_geometric", "torch_geometric.data",
+                 "torch_geometric.data.data")
+    check(not any(m in sys.modules for m in mod_names),
+          "a torch_geometric module is already imported")
+    Data = type("Data", (), {"__module__": "torch_geometric.data.data"})
+    for m in mod_names:
+        sys.modules[m] = types.ModuleType(m)
+    sys.modules["torch_geometric.data.data"].Data = Data
+    try:
+        objs = []
+        for n, edges, label in graphs:
+            d = Data()
+            both = edges + [(v, u) for u, v in edges]
+            d.edge_index = torch.tensor(np.array(sorted(both)).T,
+                                        dtype=torch.long)
+            d.x = torch.zeros(n, 1, dtype=torch.long)
+            d.y = torch.tensor([label], dtype=torch.long)
+            objs.append(d)
+        d = os.path.join(root, "EXP", "raw")
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "GRAPHSAT.pkl"), "wb") as f:
+            pickle.dump(objs, f)
+    finally:
+        for m in mod_names:
+            del sys.modules[m]
+    return graphs
+
+
+def to_graph6(n, edges, header=False):
+    """One graph as a graph6 line: N(n) (n <= 62 here), then the upper
+    triangle column by column, 6 bits a byte, each byte + 63."""
+    check(n <= 62, f"to_graph6: n={n} > 62")
+    adj = {(min(u, v), max(u, v)) for u, v in edges}
+    bits = [int((i, j) in adj) for j in range(1, n) for i in range(j)]
+    bits += [0] * (-len(bits) % 6)
+    body = bytes(63 + int("".join(map(str, bits[k:k + 6])), 2)
+                 for k in range(0, len(bits), 6))
+    return (b">>graph6<<" if header else b"") + bytes([63 + n]) + body + b"\n"
+
+
+def srg_parameters(n, edges):
+    """(v, k, lambda, mu) of a strongly regular graph, or None."""
+    import numpy as np
+    a = np.zeros((n, n), np.int64)
+    for u, v in edges:
+        a[u, v] = a[v, u] = 1
+    deg = a.sum(1)
+    common = a @ a
+    off = ~np.eye(n, dtype=bool)
+    lam = {int(x) for x in common[(a == 1) & off]}
+    mu = {int(x) for x in common[(a == 0) & off]}
+    if len(set(deg.tolist())) != 1 or len(lam) != 1 or len(mu) != 1:
+        return None
+    return n, int(deg[0]), lam.pop(), mu.pop()
+
+
+def sr25_graphs(seed=7):
+    """15 strongly regular (25,12,5,6) graphs: the Paley graph on GF(25)
+    (GF(5)[t] / (t^2 - 2)), the Latin-square graphs of the cyclic order-5
+    Latin square and of one outside its main class, and the complements of
+    those two (three isomorphism classes among the five: the Paley graph,
+    the cyclic square's graph and its complement are one); then relabelled
+    copies of these five (random node permutations) to make up 15.
+    Returns [(25, edges)]."""
+    import itertools
+    import random
+    rng = random.Random(seed)
+    elems = list(itertools.product(range(5), repeat=2))      # a + b t
+
+    def mul(x, y):
+        a, b = x
+        c, d = y
+        return ((a * c + 2 * b * d) % 5, (a * d + b * c) % 5)
+    squares = {mul(x, x) for x in elems if x != (0, 0)}
+    paley = [(i, j) for i, j in itertools.combinations(range(25), 2)
+             if ((elems[i][0] - elems[j][0]) % 5,
+                 (elems[i][1] - elems[j][1]) % 5) in squares]
+
+    def latin(square):
+        cells = [(r, c) for r in range(5) for c in range(5)]
+        return [(i, j) for i, j in itertools.combinations(range(25), 2)
+                if cells[i][0] == cells[j][0] or cells[i][1] == cells[j][1]
+                or square[cells[i][0]][cells[i][1]]
+                == square[cells[j][0]][cells[j][1]]]
+    cyclic = [[(r + c) % 5 for c in range(5)] for r in range(5)]
+    other = [[0, 1, 2, 3, 4], [1, 0, 3, 4, 2], [2, 3, 4, 0, 1],
+             [3, 4, 1, 2, 0], [4, 2, 0, 1, 3]]
+
+    def complement(edges):
+        e = set(edges)
+        return [p for p in itertools.combinations(range(25), 2) if p not in e]
+    base = [paley, latin(cyclic), latin(other), complement(latin(cyclic)),
+            complement(latin(other))]
+    out = [(25, e) for e in base]
+    while len(out) < 15:
+        perm = list(range(25))
+        rng.shuffle(perm)
+        e = base[len(out) % len(base)]
+        out.append((25, sorted(tuple(sorted((perm[u], perm[v])))
+                               for u, v in e)))
+    return out
+
+
+def write_sr25_fixture(root):
+    """``sr25_graphs`` as <root>/sr25/raw/sr251256.g6 (graph6 with the
+    header); returns the graphs."""
+    graphs = sr25_graphs()
+    d = os.path.join(root, "sr25", "raw")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "sr251256.g6"), "wb") as f:
+        for i, (n, edges) in enumerate(graphs):
+            f.write(to_graph6(n, edges, header=i == 0))
+    return graphs
 
 
 def qm9_argv(dataset_dir, save_dir, device, backend, extra=()):
@@ -627,6 +822,518 @@ def profile_step(torch, step, step_ms, label, steps=3):
             [e.key for e in kernels])
 
 
+EXP_EPOCHS, EXP_FOLDS, SR_EPOCHS = 2, 2, 3
+SIM_SWEEP_GRAPHS = 2
+
+
+def exp_argv(work, device, backend, name="EXP", epochs=EXP_EPOCHS):
+    """train_exp at its defaults' width (KPGIN K=3 L=3 H=48, batch 128)
+    on the EXP or CEXP fixture, EXP_FOLDS folds."""
+    return ["--dataset_name", name, "--dataset_dir", work, "--save_dir",
+            os.path.join(work, name.lower()), "--device", device,
+            "--backend", backend, "--folds", str(EXP_FOLDS), "--num_epochs",
+            str(epochs), "--seed", str(SEED)]
+
+
+def sr_argv(work, device, backend):
+    """train_sr at its defaults' width (KPGIN K=4 L=4 H=48, batch 15)."""
+    return ["--dataset_dir", work, "--save_dir", os.path.join(work, "sr25"),
+            "--device", device, "--backend", backend, "--num_epochs",
+            str(SR_EPOCHS), "--seed", str(SEED)]
+
+
+def expressiveness_slices(torch, dev, work):
+    """The EXP, CEXP and SR25 runs' data (fixtures written here) and
+    configs, each with its run-0 (EXP: fold-0) train split in each
+    backend's loader (same seed), so each plan has its main path's
+    shapes: {label: SimpleNamespace as the generated-data slices}."""
+    import math
+    from kpgnn_tpu_torch.scripts import common, train_exp, train_sr
+    from kpgnn_tpu_torch.train.loader import GraphLoader
+
+    write_exp_fixture(work)
+    write_exp_fixture(work, txt=True)
+    srgs = [srg_parameters(n, e) for n, e in write_sr25_fixture(work)]
+    out = {}
+    for label, name, epochs in (("exp", "EXP", EXP_EPOCHS),
+                                ("cexp", "CEXP", 1)):
+        argv = exp_argv(work, "cuda", "pallas", name, epochs)
+        a = train_exp.parser().parse_args(argv)
+        graphs = common.prepare(train_exp.load_raw(a), a, a.dataset_name)
+        cfg = common.model_config(a, ("embedding", 2),
+                                  "graph_classification", 2)
+        folds = train_exp.splits(len(graphs), a.folds)
+        sizes = {tuple(len(s) for s in f) for f in folds}
+        check(len(sizes) == 1, f"{name}: folds of sizes {sizes}")
+        tr, va, te = folds[0]
+        B = a.batch_size
+        loaders = {m: GraphLoader([graphs[i] for i in tr], B, shuffle=True,
+                                  seed=SEED, **dict(common.loader_kwargs(
+                                      a, cfg), mode=m))
+                   for m in ("pallas", "coo")}
+        out[label] = SimpleNamespace(
+            main=train_exp.main, argv=argv, cfg=cfg, loss="cross_entropy",
+            node_level=False, L=a.num_layer, D=a.hidden_size // a.K,
+            epochs=a.folds * epochs, train_steps=math.ceil(len(tr) / B),
+            val_steps=math.ceil(len(va) / B),
+            test_steps=math.ceil(len(te) / B), loaders=loaders, args=a,
+            graphs=len(graphs))
+    argv = sr_argv(work, "cuda", "pallas")
+    a = train_sr.parser().parse_args(argv)
+    graphs = common.prepare(train_sr.load_raw(a), a, "sr25")
+    cfg = common.model_config(a, ("embedding", 2), "graph_classification", 15)
+    lk = common.loader_kwargs(a, cfg)
+    loaders = {m: GraphLoader(graphs, a.batch_size, shuffle=True, seed=SEED,
+                              **dict(lk, mode=m)) for m in ("pallas", "coo")}
+    out["sr25"] = SimpleNamespace(
+        main=train_sr.main, argv=argv, cfg=cfg, loss="cross_entropy",
+        node_level=False, L=a.num_layer, D=a.hidden_size // a.K,
+        epochs=SR_EPOCHS, train_steps=1, val_steps=1, test_steps=1,
+        loaders=loaders, args=a, graphs=len(graphs), srgs=srgs,
+        eval_loader=GraphLoader(graphs, a.batch_size, **lk))
+    for sl in out.values():
+        sl.batch = sl.loaders["pallas"].example()
+        sl.plan = sl.batch.adj.to(dev)
+    return out
+
+
+def hop_k_rows(plan):
+    """The hop-k table's rows of a plan (1 for a one-hop plan, which has
+    no hop-k table)."""
+    return 1 if plan.countsk_hm is None else plan.countsk_hm.shape[2]
+
+
+def simulation_plans(dev):
+    """The plans of run_simulation's first forward: the main run's (n=50,
+    K=2, D=32) and, per K of the sweep, its first graph's (n=20, D =
+    (64 // K * K) / K): {label: (plan, K, D)}."""
+    from kpgnn_tpu_torch.prep.khop import extract_khop
+    from kpgnn_tpu_torch.scripts import run_simulation as sim
+    from kpgnn_tpu_torch.train.loader import GraphLoader
+
+    args = sim.parser().parse_args(["--seed", str(SEED)])
+    out = {}
+    for label, n, K in [("sim", args.n, args.K)] + [
+            (f"sim sweep K={k}", sim.SWEEP_NS[0], k) for k in sim.SWEEP_KS]:
+        g = sim.generate_k_regular(n, args.r, 1, SEED)[0]
+        graph = extract_khop(g["num_nodes"], g["edge_index"], None,
+                             sim.khop_config(K), x=g["x"], y=g["y"])
+        h = args.hidden_size if label == "sim" else args.hidden_size // K * K
+        lk = {"mode": "pallas", "v1": 3, "vk": 12}
+        plan = GraphLoader([graph], 1, **lk).example().adj.to(dev)
+        out[label] = (plan, K, h // K)
+    return out
+
+
+def exp_phase(ctx):
+    """[exp]: train_exp on the EXP fixture (EXP_FOLDS folds x EXP_EPOCHS
+    epochs) and on the CEXP one (1 epoch) through ``script_phase``.
+    Returns the EXP and the CEXP run's launches per (variant, D)."""
+    w = ctx.script_phase("exp", ctx.expr["exp"], ("coo",))[3]
+    wc = ctx.script_phase("cexp", ctx.expr["cexp"], ())[3]
+    return w, wc
+
+
+def sr25_phase(ctx):
+    """[sr25]: train_sr through ``script_phase``; its first evaluation
+    (after the first train step, batch-statistics norms) against the same
+    evaluation on the CPU of the card's weights after that step, and a
+    fresh card model on those weights: the same loss (rtol 1e-4) and
+    accuracy, every running statistic as it was before the evaluation;
+    and one Adam step under the gradient gate.  The CPU's own first step
+    is a witness, not gated: SR25's nodes all look alike, many gradients
+    are rounding noise, and Adam's first update moves each weight by
+    about lr whatever the size of its gradient, so the two devices' steps
+    part in the sign of those updates.  Returns the run's and the gated
+    step's launches per (variant, D)."""
+    torch = ctx.torch
+    from kpgnn_tpu_torch.models.factory import make_model
+    from kpgnn_tpu_torch.nn.inits import init_parameters
+    from kpgnn_tpu_torch.train.loop import evaluate, train_step
+    from kpgnn_tpu_torch.train.state import make_optimizer
+
+    sl = ctx.expr["sr25"]
+    fwd = sl.plan.fwd
+    per_hop = [int(fwd.indptr[(k + 1) * fwd.rows_per_hop]
+                   - fwd.indptr[k * fwd.rows_per_hop]) for k in range(sl.cfg.K)]
+    log(f"[sr25] {sl.graphs} graphs, (v, k, lambda, mu) "
+        f"{sorted(set(sl.srgs), key=str)}; the plan's hop edges per hop "
+        f"{per_hop}, rows up to the last live one per hop {fwd.hop_live}")
+    check(len(sl.srgs) == sl.graphs == 15
+          and set(sl.srgs) == {(25, 12, 5, 6)},
+          f"sr25: the fixture's graphs are not 15 SRG(25,12,5,6): {sl.srgs}")
+    check(per_hop[2:] == [0] * (sl.cfg.K - 2) and min(per_hop[:2]) > 0,
+          f"sr25: hops 3.. carry {per_hop[2:]} edges (diameter 2: none)")
+    after = {}
+    sl.on_epoch = lambda e, m, row: after.setdefault(e, {
+        k: t.detach().cpu().clone() for k, t in m.state_dict().items()})
+    rows, _, _, w = ctx.script_phase("sr25", sl, ("coo",))
+    a = sl.args
+    got = rows[0]
+    evals = {}
+    for name, device in (("CPU", torch.device("cpu")), ("card", ctx.dev)):
+        model = make_model(sl.cfg).to(device)
+        model.load_state_dict(after[0])
+        before = {k: v.clone() for k, v in model.named_buffers()}
+        evals[name] = evaluate(model, [b.to(device) for b in sl.eval_loader],
+                               sl.loss, bn_train_mode=True)
+        check(all(torch.equal(v, before[k])
+                  for k, v in model.named_buffers()),
+              f"sr25: the {name} eval moved a running statistic")
+    init = init_parameters(make_model(sl.cfg), SEED)
+    own = init_parameters(make_model(sl.cfg), SEED)
+    train_step(own, make_optimizer(own.parameters(), a.lr, a.l2_wd),
+               first_batch(sl.loaders["pallas"]), sl.loss)
+    own_eval = evaluate(own, list(sl.eval_loader), sl.loss,
+                        bn_train_mode=True)
+    flipped = total = 0
+    for k, p in init.named_parameters():
+        up_card = after[0][k] - p.detach()
+        up_cpu = own.state_dict()[k] - p.detach()
+        flipped += int((torch.sign(up_card) != torch.sign(up_cpu)).sum())
+        total += p.numel()
+    rel = {n: abs(got["val_loss"] - e["loss"]) / abs(e["loss"])
+           for n, e in evals.items()}
+    log(f"[sr25] first eval (batch-statistics norms) after the card's first "
+        f"step: loss {got['val_loss']:.7f} accuracy {got['val_accuracy']:.4f}"
+        + "".join(f"; the same weights on the {n}: {e['loss']:.7f} / "
+                  f"{e['accuracy']:.4f} (rel diff {rel[n]:.2e})"
+                  for n, e in evals.items())
+        + f"; running statistics unchanged by each; witness, the CPU's own "
+        f"first step: eval loss {own_eval['loss']:.7f} / "
+        f"{own_eval['accuracy']:.4f}, its update's sign differs from the "
+        f"card's in {flipped} of {total} weights; accuracy per epoch "
+        f"{[r['val_accuracy'] for r in rows]}")
+    check(all(x <= 1e-4 for x in rel.values())
+          and all(e["accuracy"] == got["val_accuracy"]
+                  for e in evals.values()),
+          f"sr25: the first eval differs from the same weights' ({rel})")
+    gate = ctx.gradient_gate(
+        "sr25", f"KPGIN K={sl.cfg.K} L={sl.L} SR25", sl.cfg,
+        sl.loaders["pallas"], (a.lr, a.l2_wd), sl.loss,
+        {ctx.fused_v: sl.L, ctx.gather_v: sl.L})
+    return w, gate
+
+
+def sim_embeddings(torch, device, n_graphs):
+    """run_simulation's node embeddings of its first ``n_graphs`` graphs
+    at its defaults, on ``device`` (plain version on the CPU)."""
+    from kpgnn_tpu_torch.models.factory import make_model
+    from kpgnn_tpu_torch.nn.inits import init_parameters
+    from kpgnn_tpu_torch.prep.khop import extract_khop
+    from kpgnn_tpu_torch.scripts import run_simulation as sim
+
+    args = sim.parser().parse_args(["--seed", str(SEED), "--backend",
+                                    "pallas"])
+    mcfg = sim.model_config(args.K, args.hidden_size)
+    lk = {"mode": "pallas", "v1": 3, "vk": 12}
+    out = []
+    for i, g in enumerate(sim.generate_k_regular(args.n, args.r, n_graphs,
+                                                 SEED)):
+        graph = extract_khop(g["num_nodes"], g["edge_index"], None,
+                             sim.khop_config(args.K), x=g["x"], y=g["y"])
+        model = init_parameters(make_model(mcfg), SEED + i).to(device)
+        out.append(sim.node_embeddings(model, graph, lk, device))
+    return out
+
+
+def sim_phase(ctx):
+    """[sim]: run_simulation at its defaults (n=50 r=3, 10 graphs, K=2
+    H=64) on the card: exactly L fused launches a forward, no gather; the
+    collision rate against the same run on the CPU.  The rate's 1e-8
+    threshold is below f32 rounding, so a pair may collide on one device
+    only where the two sum in another order: any such pair must lie
+    within rounding (1e-5 of the largest |value|) on both.  Then --sweep
+    --graphs SIM_SWEEP_GRAPHS: its JSON table written, K x n rates in
+    [0, 1], and one fused launch a forward at each K's width.  Returns the
+    main run's and the sweep's launches per (variant, D)."""
+    import numpy as np
+    torch, spmm = ctx.torch, ctx.spmm
+    from kpgnn_tpu_torch.scripts import run_simulation as sim
+
+    base = ["--backend", "pallas", "--seed", str(SEED)]
+    args = sim.parser().parse_args(base)
+    spmm.reset_launch_counts()
+    rate = sim.main(base + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    v = dict(spmm.gather_segment_sum.variant_launches)
+    w = +Counter(spmm.gather_segment_sum.width_launches)
+    D = args.hidden_size // args.K
+    expect = {ctx.fused_v: args.graphs * args.num_layer}
+    rate_cpu = sim.main(base + ["--device", "cpu"])
+    log(f"[sim] n={args.n} r={args.r} K={args.K} H={args.hidden_size}, "
+        f"{args.graphs} graphs: collision rate GPU {rate:.6f}, CPU "
+        f"{rate_cpu:.6f}; kernel launches {v} (expected {expect}), by "
+        f"width {dict(w)}")
+    check(v == expect and dict(w) == {(ctx.fused_v, D): expect[ctx.fused_v]},
+          f"sim: launches {v} {dict(w)} != {expect} at D={D} (forward only: "
+          f"L fused a forward, no gather)")
+    check(0.0 < rate < 1.0, f"sim: collision rate {rate}")
+    if rate != rate_cpu:
+        one_side = 0
+        for eg, ec in zip(sim_embeddings(torch, ctx.dev, args.graphs),
+                          sim_embeddings(torch, torch.device("cpu"),
+                                         args.graphs)):
+            tol = 1e-5 * float(np.abs(ec).max())
+            iu = np.triu_indices(len(ec), 1)
+            dg = np.linalg.norm(eg[:, None] - eg[None], axis=-1)[iu]
+            dc = np.linalg.norm(ec[:, None] - ec[None], axis=-1)[iu]
+            diff = (dg < 1e-8) != (dc < 1e-8)
+            one_side += int(diff.sum())
+            check(bool(((dg < tol) == (dc < tol)).all()
+                       and (dg[diff] < tol).all() and (dc[diff] < tol).all()),
+                  "sim: a pair that collides on one device only is not "
+                  "equal within rounding on both")
+        log(f"[sim] the rates differ: {one_side} pairs collide on one "
+            f"device only, each equal within rounding on both")
+    spmm.reset_launch_counts()
+    plot = os.path.join(ctx.work, "sim", "simulation.png")
+    sweep = ["--sweep", "--graphs", str(SIM_SWEEP_GRAPHS)]
+    table = sim.main(base + sweep + ["--device", "cuda", "--plot_path", plot])
+    torch.cuda.synchronize()
+    ws = +Counter(spmm.gather_segment_sum.width_launches)
+    per = len(sim.SWEEP_NS) * SIM_SWEEP_GRAPHS
+    expect_w = Counter()
+    for K in sim.SWEEP_KS:
+        Dk = args.hidden_size // K
+        expect_w[spmm.variant_name(torch.float32, Dk * 4 % 16 == 0, True),
+                 Dk] += per
+    with open(table["json"]) as f:
+        saved = json.load(f)
+    cpu_table = sim.main(base + sweep + ["--device", "cpu", "--plot_path",
+                                         os.path.join(ctx.work, "sim_cpu",
+                                                      "simulation.png")])
+    log(f"[sim] sweep: {table['json']} written (plot "
+        f"{'drawn' if table['plot'] else 'not drawn: no matplotlib'}); "
+        f"rates by K over n={saved['n']}: GPU {saved['rates']}, CPU "
+        f"{ {k: v for k, v in cpu_table['rates'].items()} }; launches by "
+        f"width {dict(ws)} (expected {dict(expect_w)})")
+    check(sorted(saved["rates"]) == [str(k) for k in sim.SWEEP_KS]
+          and all(len(r) == len(sim.SWEEP_NS) and all(0.0 <= x <= 1.0
+                                                      for x in r)
+                  for r in saved["rates"].values()),
+          f"sim: sweep table {saved['rates']}")
+    check(ws == expect_w, f"sim: sweep launches {dict(ws)} != "
+          f"{dict(expect_w)}")
+    return w, ws
+
+
+def search_phase(ctx):
+    """[search]: run_search's sr_search preset, its first config, for one
+    epoch on the SR25 fixture through the kernel: one finite result.
+    Returns its launches per (variant, D)."""
+    import math
+    from kpgnn_tpu_torch.scripts import run_search
+    ctx.spmm.reset_launch_counts()
+    res = run_search.main([
+        "--preset", "sr_search", "--limit", "1", "--base",
+        f"--device cuda --backend pallas --num_epochs 1 --seed {SEED} "
+        f"--dataset_dir {ctx.work} --save_dir "
+        f"{os.path.join(ctx.work, 'search')}"])
+    w = +Counter(ctx.spmm.gather_segment_sum.width_launches)
+    log(f"[search] sr_search, first config: {res}; launches by width "
+        f"{dict(w)}")
+    check(len(res) == 1 and res[0]["script"] == "sr"
+          and math.isfinite(res[0]["metric"]),
+          f"search: {res}")
+    return w
+
+
+def ckpt_phase(ctx):
+    """[ckpt]: the flagship with --save_checkpoints for 2 epochs
+    (``script_phase``); best.pt equal to the model of its epoch; loaded
+    into a fresh model and optimizer on the card and on the CPU, and
+    card -> CPU -> card, every parameter, buffer and optimizer-state tensor
+    bit for bit; then a 1-epoch --load_path warm start whose first step
+    equals the CPU's warm start.  Returns the runs' launches per (variant,
+    D)."""
+    import glob
+    torch = ctx.torch
+    from kpgnn_tpu_torch.models.factory import make_model
+    from kpgnn_tpu_torch.nn.inits import init_parameters
+    from kpgnn_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                  read_checkpoint,
+                                                  save_checkpoint)
+    from kpgnn_tpu_torch.train.state import make_optimizer
+
+    states = {}
+    save = os.path.join(ctx.work, "ckpt")
+    run = SimpleNamespace(**dict(
+        vars(ctx.zinc), epochs=2,
+        argv=train_argv(ctx.work, save, "cuda") + ["--num_epochs", "2",
+                                                   "--save_checkpoints"],
+        on_epoch=lambda e, m, row: states.__setitem__(e, {
+            k: t.detach().cpu().clone() for k, t in m.state_dict().items()})))
+    w = ctx.script_phase("ckpt", run, ())[3]
+    dirs = glob.glob(os.path.join(save, "train", "*", "checkpoints"))
+    check(len(dirs) == 1, f"ckpt: checkpoint dirs {dirs}")
+    files = sorted(os.listdir(dirs[0]))
+    best = os.path.join(dirs[0], "best.pt")
+    ref = read_checkpoint(best)
+    epoch = ref["meta"]["step"]
+    check("best.pt" in files and f"step_{epoch}.pt" in files,
+          f"ckpt: files {files}")
+    check(all(torch.equal(ref["model"][k], t)
+              for k, t in states[epoch].items()),
+          f"ckpt: best.pt is not the model of epoch {epoch}")
+
+    def restored(device, path):
+        model = init_parameters(make_model(ctx.mcfg), SEED + 1).to(device)
+        opt = make_optimizer(model.parameters(), ctx.args.lr,
+                             ctx.args.l2_wd)
+        load_checkpoint(path, model, opt)
+        return model, opt
+
+    def same(model, opt, label):
+        """Every tensor against best.pt's; each optimizer state tensor
+        where a fresh optimizer keeps it (Adam's step counts on the CPU,
+        the moments beside their parameter)."""
+        sd, od = model.state_dict(), opt.state_dict()
+        check(sd.keys() == ref["model"].keys()
+              and all(torch.equal(sd[k].cpu(), ref["model"][k]) for k in sd),
+              f"ckpt: {label}: a parameter or buffer differs")
+        ro = ref["opt"]
+        check(od["param_groups"] == ro["param_groups"]
+              and od["state"].keys() == ro["state"].keys(),
+              f"ckpt: {label}: optimizer groups or state keys differ")
+        params = [p for g in opt.param_groups for p in g["params"]]
+        n = 0
+        for i, st in ro["state"].items():
+            for k, t in st.items():
+                got = od["state"][i][k]
+                where = (torch.device("cpu") if k == "step"
+                         else params[i].device)
+                check(got.dtype == t.dtype and got.device == where
+                      and torch.equal(got.cpu(), t),
+                      f"ckpt: {label}: optimizer state {i}/{k} differs or "
+                      f"lies on {got.device}, not {where}")
+                n += 1
+        return n
+    card = same(*restored(ctx.dev, best), "restored on the card")
+    model_c, opt_c = restored(torch.device("cpu"), best)
+    same(model_c, opt_c, "restored on the CPU")
+    trip = os.path.join(ctx.work, "ckpt_cpu.pt")
+    save_checkpoint(trip, model_c, opt_c, ref["meta"])
+    same(*restored(ctx.dev, trip), "card -> CPU -> card")
+    log(f"[ckpt] best.pt (epoch {epoch} of 2, files {files}): "
+        f"{len(ref['model'])} parameters and buffers and {card} optimizer "
+        f"tensors bit-identical restored on the card, on the CPU and card "
+        f"-> CPU -> card; Adam's step counts on the CPU, the moments beside "
+        f"their parameters")
+    warm = SimpleNamespace(**dict(
+        vars(ctx.zinc), load=best,
+        argv=train_argv(ctx.work, os.path.join(ctx.work, "ckpt_warm"),
+                        "cuda") + ["--load_path", best]))
+    ww = ctx.script_phase("ckpt warm start", warm, ())[3]
+    return w + ww
+
+
+TRACE_KERNEL = re.compile(r"gather_segment_sum_kernel<(\w+), (true|false), "
+                          r"(true|false)")
+
+
+def trace_variants(torch, spmm, names):
+    """{kernel variant: events} of the gather kernel's events in a trace
+    (``names``: {event name: count})."""
+    out = Counter()
+    for name, n in names.items():
+        m = TRACE_KERNEL.search(name)
+        if m:
+            dtype = torch.float32 if m.group(1) == "float" else torch.bfloat16
+            out[spmm.variant_name(dtype, m.group(2) == "true",
+                                  m.group(3) == "true")] += n
+    return out
+
+
+def profile_phase(ctx):
+    """[profile]: the flagship with --profile_dir for 2 epochs
+    (``script_phase``): trace_summary finds the trace of epoch 1, whose
+    device events hold the kernel's fused and gather variants exactly as
+    often as the launch counter counted them in that epoch (2L a train
+    step).  Then profile_step's resident, bf16 and large stages: exit 0,
+    each stage's time and top device ops.  Returns the flagship run's
+    launches and profile_step's (the large stage: D=34, scalar) per
+    (variant, D)."""
+    import io
+    torch, spmm = ctx.torch, ctx.spmm
+    from kpgnn_tpu_torch.scripts import profile_step
+    from kpgnn_tpu_torch.utils import profiling, trace_summary
+
+    prof = os.path.join(ctx.work, "prof")
+    traced = Counter()
+    plain_trace = profiling.trace
+
+    @contextlib.contextmanager
+    def counting_trace(*a, **kw):
+        before = Counter(spmm.gather_segment_sum.variant_launches)
+        with plain_trace(*a, **kw) as p:
+            yield p
+        after = Counter(spmm.gather_segment_sum.variant_launches)
+        after.subtract(before)
+        traced.update(+after)
+    run = SimpleNamespace(**dict(
+        vars(ctx.zinc), epochs=2,
+        argv=train_argv(ctx.work, os.path.join(ctx.work, "profsave"), "cuda")
+        + ["--num_epochs", "2", "--profile_dir", prof]))
+    profiling.trace = counting_trace
+    try:
+        w = ctx.script_phase("profile", run, ())[3]
+    finally:
+        profiling.trace = plain_trace
+    text = trace_summary.report(prof, 8)
+    tracks = trace_summary.summarize(trace_summary.load_events(
+        trace_summary.find_trace(prof)))
+    names = Counter()
+    for name, t in tracks.items():
+        if not name.startswith("/host"):
+            names.update(t["counts"])
+    in_trace = trace_variants(torch, spmm, names)
+    expect = {ctx.fused_v: ctx.zinc.train_steps * L,
+              ctx.gather_v: ctx.zinc.train_steps * L}
+    log(f"[profile] trace of epoch 1: {len(names)} device op names, kernel "
+        f"variants in the trace {dict(in_trace)}, launch counter over the "
+        f"traced epoch {dict(traced)} (expected {expect}); summary:\n"
+        + "\n".join(f"[profile]   {x}" for x in text.splitlines()))
+    check(bool(names), "profile: the trace has no device event")
+    check(in_trace == traced == Counter(expect),
+          f"profile: trace {dict(in_trace)}, counter {dict(traced)}, "
+          f"expected {expect}")
+    spmm.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = profile_step.main(["--stages", "resident,bf16,large",
+                                     "--out_dir",
+                                     os.path.join(ctx.work, "profile_step")])
+    except SystemExit as e:
+        log(buf.getvalue())
+        raise SmokeFailure(f"profile_step exited with {e.code}")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    wp = +Counter(spmm.gather_segment_sum.width_launches)
+    keep, top = [], 0
+    for x in buf.getvalue().splitlines():
+        if x.startswith(("resident epoch", "dense ", "large-graph", "[stage",
+                         "device:", "top ops")):
+            keep.append(x)
+            top = 5 if x.startswith("top ops") else 0
+        elif top:
+            keep.append(x)
+            top -= 1
+    log(f"[profile] profile_step --stages resident,bf16,large: exit 0 in "
+        f"{secs:.1f} s; launches by width {dict(wp)}; stage times and top "
+        "device ops:\n" + "\n".join(f"[profile_step] {x}" for x in keep))
+    check(set(res) == {"resident", "bf16", "large"},
+          f"profile_step returned {sorted(res)}")
+    D = profile_step.LARGE_HIDDEN // profile_step.LARGE_K
+    check(set(wp) <= {(spmm.variant_name(torch.float32, False, f), D)
+                      for f in (True, False)},
+          f"profile_step launched {dict(wp)} (the large stage: D={D}, "
+          f"scalar variants)")
+    return w, wp, res
+
+
 def main():
     import torch
 
@@ -655,9 +1362,11 @@ def main():
     from kpgnn_tpu_torch.train.loader import GraphLoader
     from kpgnn_tpu_torch.train.loop import (_batch_target_mask, _masked_loss,
                                             resident_rule, train_step)
+    from kpgnn_tpu_torch.train.checkpoint import load_checkpoint
     from kpgnn_tpu_torch.train.resident import (build_coo_store,
                                                 build_dense_store, gather_any)
     from kpgnn_tpu_torch.train.state import make_optimizer
+    from kpgnn_tpu_torch.scripts import profile_step as profile_script
 
     common.set_full_f32()
     dev = torch.device("cuda")
@@ -860,6 +1569,37 @@ def main():
                 f"the last live one per hop {sl.plan.fwd.hop_live}; split "
                 + " / ".join(str(len(x)) for x in g_split) + " graphs")
 
+        # the expressiveness runs' data: EXP, CEXP and SR25 on fixtures
+        # written here, their first batches' plans; the simulation's first
+        # forward per run; profile_step's large-graph plan
+        expr = expressiveness_slices(torch, dev, work)
+        for label, sl in expr.items():
+            d = sl.plan.fwd.indptr[1:] - sl.plan.fwd.indptr[:-1]
+            log(f"[plan] {label} batch (KPGIN K={sl.cfg.K} L={sl.L} H="
+                f"{sl.args.hidden_size}, batch {sl.args.batch_size}, kernel "
+                f"D={sl.D}): {int(sl.batch.node_mask.sum())} nodes, n_pad "
+                f"{sl.batch.n_pad}, K*n_pad = {sl.plan.fwd.n_rows} rows, "
+                f"{int((d > 0).sum())} of them with an edge, at most "
+                f"{int(d.max())} edges a row, {sl.plan.fwd.senders.shape[0]} "
+                f"live hop edges; rows up to the last live one per hop "
+                f"{sl.plan.fwd.hop_live}; {sl.graphs} graphs")
+        sim_plans = simulation_plans(dev)
+        for label, (p, k, d) in sim_plans.items():
+            log(f"[plan] {label} graph (KPGIN K={k}, kernel D={d}): "
+                f"{p.fwd.n_rows} rows, {p.fwd.senders.shape[0]} live hop "
+                f"edges; rows up to the last live one per hop {p.fwd.hop_live}")
+        large_cfg, large_batch, large_collate_s = profile_script.large_batch()
+        lplan = large_batch.adj.to(dev)
+        LD = large_cfg.hidden_size // large_cfg.K
+        ld = lplan.fwd.indptr[1:] - lplan.fwd.indptr[:-1]
+        log(f"[plan] profile_step large batch (KPGIN K={large_cfg.K} H="
+            f"{large_cfg.hidden_size}, kernel D={LD}): "
+            f"{profile_script.LARGE_GRAPHS} x {profile_script.LARGE_NODES}-"
+            f"node polymers, n_pad {large_batch.n_pad}, K*n_pad = "
+            f"{lplan.fwd.n_rows} rows, at most {int(ld.max())} edges a row, "
+            f"{lplan.fwd.senders.shape[0]} live hop edges; collate_pallas on "
+            f"the host {large_collate_s:.3f} s")
+
         def collate_ms(loader):
             ts = []
             for _ in range(5):
@@ -941,7 +1681,7 @@ def main():
                                        msg=lambda m: f"{name} fwd: {m}")
             torch.testing.assert_close(grad_k, xr.grad, **tol_b,
                                        msg=lambda m: f"{name} bwd: {m}")
-            if not hub:
+            if not hub or shape is not None:
                 note(v_f, ef, D if shape is None else shape)
                 note(set(v_b) | set(v_g), eb, D if shape is None else shape)
             log(f"[check] {name}: rows {fwd.n_rows} cols {fwd.n_cols} "
@@ -1109,6 +1849,24 @@ def main():
             compare_fused(f"{label} k={sl.cfg.K}", sl.plan, sl.D,
                           VK=sl.plan.countsk_hm.shape[2], shape=label)
 
+        # the expressiveness shapes: EXP/CEXP KPGIN K=3 D=16, SR25 K=4
+        # D=12 (hops 3-4 empty), the simulation's forward at K=2 D=32 and
+        # its sweep's K=1..4 (D=64/32/21/16; 21 takes the scalar variant),
+        # profile_step's large plan at D=34 (scalar) over 16,384 nodes, its
+        # f32 sums under the hub rule's tolerance
+        for label, sl in expr.items():
+            compare(f"{label} k={sl.cfg.K}", sl.plan.fwd, sl.plan.bwd, sl.D,
+                    shape=label)
+            compare_fused(f"{label} k={sl.cfg.K}", sl.plan, sl.D,
+                          VK=sl.plan.countsk_hm.shape[2], shape=label)
+        for label, (p, k, d) in sim_plans.items():
+            compare_fused(f"{label} k={k}", p, d, VK=hop_k_rows(p),
+                          shape=label)
+        compare(f"large k={large_cfg.K}", lplan.fwd, lplan.bwd, LD, hub=True,
+                shape="large")
+        compare_fused(f"large k={large_cfg.K}", lplan, LD,
+                      VK=lplan.countsk_hm.shape[2], shape="large")
+
         # determinism: three launches of every variant on one input, each
         # on the CSR where the main path launches it
         fwd, bwd = plan.fwd, plan.bwd
@@ -1142,10 +1900,14 @@ def main():
 
         def first_step_loss(sl, batch, device):
             """The trainer's first-step loss before its update: the model
-            initialized from SEED on the CPU, moved to ``device``; this
-            launches no kernel (the CPU takes the plain version, COO and
-            dense have no kernel)."""
-            model = init_parameters(make_model(sl.cfg), SEED).to(device)
+            initialized from SEED on the CPU (or from the checkpoint
+            ``sl.load``, a warm start), moved to ``device``; this launches
+            no kernel (the CPU takes the plain version, COO and dense have
+            no kernel)."""
+            model = init_parameters(make_model(sl.cfg), SEED)
+            if getattr(sl, "load", None):
+                load_checkpoint(sl.load, model)
+            model = model.to(device)
             b = batch.to(device)
             with torch.no_grad():
                 (lsum, cnt), v = launched(spmm, lambda: _masked_loss(
@@ -1175,6 +1937,8 @@ def main():
                 sl.dtypes = {t.dtype for t in model.parameters()} | {
                     t.dtype for n, t in model.named_buffers()
                     if "running" in n}
+                if getattr(sl, "on_epoch", None):
+                    sl.on_epoch(epoch, model, row)
             spmm.reset_launch_counts()
             t0 = time.perf_counter()
             result = sl.main(sl.argv, epoch_callback=on_epoch)
@@ -1678,6 +2442,24 @@ def main():
             sl.loss, {fused_v: sl.L, gather_v: sl.L}, node_level=True))
 
         mark("generated")
+        # ---- 10. the expressiveness scripts, checkpoints and profiling ----
+        ctx = SimpleNamespace(
+            torch=torch, spmm=spmm, dev=dev, work=work, expr=expr,
+            script_phase=script_phase, gradient_gate=gradient_gate,
+            fused_v=fused_v, gather_v=gather_v, zinc=zinc, mcfg=mcfg,
+            args=args)
+        exp_w, cexp_w = exp_phase(ctx)
+        mark("exp")
+        sr_w, sr_gate_w = sr25_phase(ctx)
+        mark("sr25")
+        sim_w, sweep_w = sim_phase(ctx)
+        mark("sim")
+        search_w = search_phase(ctx)
+        mark("search")
+        ckpt_w = ckpt_phase(ctx)
+        mark("ckpt")
+        prof_w, large_w, _ = profile_phase(ctx)
+        mark("profile")
         # ---- 9. times, on the flagship k=8 plan ----
         def sparse(c, dtype):
             n_e = c.senders.shape[0]
@@ -1766,9 +2548,13 @@ def main():
         # ---- the same times at the CSL shapes ----
         def shape_times(sub, D, label, vk):
             """The f32 variants where the main path launches them over this
-            plan (the fused form over fwd, the gather over bwd) and the
+            plan (the fused form over fwd, the gather over bwd; the 16-byte
+            variants, or the scalar ones where D * 4 % 16 != 0) and the
             gather over fwd beside torch.sparse.mm; ``vk`` is the hop-k
             table's rows.  Returns the fused form's inputs and times."""
+            vec = D * 4 % 16 == 0
+            fv = spmm.variant_name(torch.float32, vec, True)
+            gv = spmm.variant_name(torch.float32, vec, False)
             t1c = torch.randn(sub.counts1.shape[1], D, device=dev,
                               generator=gen)
             tkc = (torch.randn(vk, D, device=dev, generator=gen)
@@ -1780,9 +2566,9 @@ def main():
                   for _ in range(8)]
             out = {}
             for what, csr, xs, k, vname in (
-                    ("fwd", sub.fwd, xf, kw, fused_v),
-                    ("bwd", sub.bwd, xb, {}, gather_v),
-                    ("fwd", sub.fwd, xf, {}, gather_v)):
+                    ("fwd", sub.fwd, xf, kw, fv),
+                    ("bwd", sub.bwd, xb, {}, gv),
+                    ("fwd", sub.fwd, xf, {}, gv)):
                 t, v = launched(spmm, lambda: timed(csr, xs, k))
                 check(set(v) == {vname}, f"timing {label} {vname} launched "
                       f"{v}")
@@ -1884,6 +2670,16 @@ def main():
             f"{sl.args.batch_size})")
         profile_step(torch, nprop_step, nstep_ms, "nprop")
         mark("time generated")
+        # ---- the same times at the expressiveness and large shapes ----
+        new_t = {label: shape_times(sl.plan, sl.D, f"{label} k={sl.cfg.K}",
+                                    sl.plan.countsk_hm.shape[2])[2]
+                 for label, sl in expr.items() if label != "cexp"}
+        for label, (p, k, d) in sim_plans.items():
+            new_t[label] = shape_times(p, d, f"{label} k={k}",
+                                       hop_k_rows(p))[2]
+        new_t["large"] = shape_times(lplan, LD, f"large k={large_cfg.K}",
+                                     lplan.countsk_hm.shape[2])[2]
+        mark("time expressiveness")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1893,8 +2689,10 @@ def main():
     # widths are all distinct, and of the QM9 run and KPGINPrime step
     zinc_csl_w = path_w + csl_w + fam_w
     all_launches = Counter()
+    new_runs = (exp_w + cexp_w + sr_w + sr_gate_w + sim_w + sweep_w
+                + search_w + ckpt_w + prof_w + large_w)
     for (vname, _), n in sum(gen_w.values(), zinc_csl_w + qm9_w + prime_w
-                             + bf16_w).items():
+                             + bf16_w + new_runs).items():
         all_launches[vname] += n
     # the main path's shapes, each timed on the CSR where it launches:
     # (name suffix, label, D, error key, fused times, gather times,
@@ -1930,6 +2728,31 @@ def main():
                 shape=f"{label}, D={D}", launches=w[vname, D],
                 max_abs_err=errs_w[vname, key], ms=ms, plain_ms=plain,
                 bound_ms=bound, bound_by=by, library_ms=lib))
+    # the expressiveness shapes, each with the launches of the run that
+    # takes it: EXP (the EXP run), SR25 (the run and its gated step), the
+    # simulation's forward-only fused launches (the main run at K=2, the
+    # sweep at each K), and profile_step's large stage (scalar variants)
+    def new_entry(vname, D, label, key, t, w):
+        ms, plain, lib, bound, by = t
+        return dict(name=f"{vname} D={D} {key}", **KERNEL,
+                    shape=f"{label}, D={D}", launches=w[vname, D],
+                    max_abs_err=errs_w[vname, key], ms=ms, plain_ms=plain,
+                    bound_ms=bound, bound_by=by, library_ms=lib)
+    for key, sl, w in (("exp", expr["exp"], exp_w),
+                       ("sr25", expr["sr25"], sr_w + sr_gate_w)):
+        for vname, what in ((fused_v, "fwd"), (gather_v, "bwd")):
+            entries.append(new_entry(vname, sl.D, f"{key} k={sl.cfg.K} plan",
+                                     key, new_t[key][vname, what], w))
+    for key, (p, k, d) in sim_plans.items():
+        fv = spmm.variant_name(torch.float32, d * 4 % 16 == 0, True)
+        entries.append(new_entry(fv, d, f"{key} k={k} plan (forward only)",
+                                 key, new_t[key][fv, "fwd"],
+                                 sim_w if key == "sim" else sweep_w))
+    for fused in (True, False):
+        vname = spmm.variant_name(torch.float32, LD * 4 % 16 == 0, fused)
+        entries.append(new_entry(
+            vname, LD, f"profile_step large k={large_cfg.K} plan", "large",
+            new_t["large"][vname, "fwd" if fused else "bwd"], large_w))
     # --bf16 on the flagship: the bf16 variants where its path launches
     # them (the byte bound at 2-byte x; torch.sparse.mm on bf16 where
     # PyTorch takes it)

@@ -216,6 +216,58 @@ def star_graph(n: int) -> Edges:
     return [(0, i) for i in range(1, n + 1)]
 
 
+def random_regular_graph(d: int, n: int, rng: random.Random) -> Edges:
+    """networkx.random_regular_graph (Steger and Wormald): pair up the d
+    copies of every node's stub at random, and re-pair the stubs of the
+    pairs that form a self-loop or a repeated edge until none is left, or
+    start over when no suitable pair remains."""
+    if (n * d) % 2 != 0:
+        raise ValueError("n * d must be even")
+    if not 0 <= d < n:
+        raise ValueError("the 0 <= d < n inequality must be satisfied")
+    if d == 0:
+        return []
+
+    def suitable(edges, potential_edges) -> bool:
+        if not potential_edges:
+            return True
+        for s1 in potential_edges:
+            for s2 in potential_edges:
+                if s1 == s2:
+                    break
+                if s1 > s2:
+                    s1, s2 = s2, s1
+                if (s1, s2) not in edges:
+                    return True
+        return False
+
+    def try_creation():
+        edges = set()
+        stubs = list(range(n)) * d
+        while stubs:
+            potential_edges = Counter()      # insertion-ordered, as there
+            rng.shuffle(stubs)
+            stubiter = iter(stubs)
+            for s1, s2 in zip(stubiter, stubiter):
+                if s1 > s2:
+                    s1, s2 = s2, s1
+                if s1 != s2 and (s1, s2) not in edges:
+                    edges.add((s1, s2))
+                else:
+                    potential_edges[s1] += 1
+                    potential_edges[s2] += 1
+            if not suitable(edges, potential_edges):
+                return None
+            stubs = [node for node, potential in potential_edges.items()
+                     for _ in range(potential)]
+        return edges
+
+    edges = try_creation()
+    while edges is None:
+        edges = try_creation()
+    return sorted(edges)
+
+
 # ---- the families ----
 
 def _family(N: int, gtype: GraphType, seed: int, degree: Optional[int],

@@ -13,11 +13,14 @@ stay f32; the kernel takes its bf16 variants).  ``--resident``
 (``train.loop.resident_rule``).  ``prepare`` caches prep under
 ``--cache_dir`` (default ``<dataset_dir>/cache``, or
 ``KPGNN_CACHE_DIR``), ``--reprocess`` rebuilds it and ``--num_workers``
-> 1 preps on a pool of processes.  Options whose code paths are not
+> 1 preps on a pool of processes.  ``--load_path`` warm-starts from a
+checkpoint, ``--save_checkpoints`` keeps the best epochs' under
+``<save_dir>/checkpoints`` and ``--profile_dir`` gets a torch.profiler
+trace of epoch 1 (train/loop.Trainer).  Options whose code paths are not
 ported yet raise ``NotImplementedError`` naming ROADMAP.md instead of
-being ignored: ``--backend banded``, ``--parallel``, ``--load_path``,
-``--save_checkpoints``, ``--profile_dir``.  ``--matmul_precision`` has
-nothing to select: the port runs f32 matmuls in full f32.
+being ignored: ``--backend banded`` and ``--parallel``.
+``--matmul_precision`` has nothing to select: the port runs f32 matmuls
+in full f32.
 """
 from __future__ import annotations
 
@@ -111,7 +114,9 @@ def base_parser(description: str, **defaults) -> argparse.ArgumentParser:
                    help="write best-val checkpoints under "
                         "save_dir/checkpoints")
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="profiler trace of epoch 1 (not ported yet)")
+                   help="torch.profiler chrome trace of epoch 1 (epoch 0 "
+                        "when there is one), read by "
+                        "kpgnn_tpu_torch.utils.trace_summary")
     p.add_argument("--dense", action="store_true",
                    help="shorthand for --backend dense")
     p.add_argument("--backend", type=str, default="coo",
@@ -210,10 +215,6 @@ def check_ported(args) -> None:
                         "are ported)")
     if args.parallel:
         unported.append("--parallel")
-    if args.load_path or args.save_checkpoints:
-        unported.append("checkpoints")
-    if args.profile_dir:
-        unported.append("--profile_dir")
     if unported:
         raise NotImplementedError(
             "not ported to kpgnn_tpu_torch yet (ROADMAP.md, Queue 1): "

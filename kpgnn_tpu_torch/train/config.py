@@ -23,8 +23,9 @@ class TrainConfig:
     # stop when the plateau scheduler bottoms out (reference ZINC behavior)
     stop_at_min_lr: bool = False
     save_dir: Optional[str] = None
-    # checkpoints (not ported yet: must stay None / False)
+    # warm start from a checkpoint; best-val checkpoints under
+    # save_dir/checkpoints (train/checkpoint.py)
     load_path: Optional[str] = None
     save_checkpoints: bool = False
-    # profiler trace of epoch 1 (not ported yet: must stay None)
+    # torch.profiler chrome trace of epoch 1 (utils/profiling.py)
     profile_dir: Optional[str] = None

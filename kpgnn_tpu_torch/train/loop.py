@@ -1,17 +1,18 @@
 """Train/eval steps and the epoch-level Trainer (counterpart of
-kpgnn_tpu/train/loop.py: the per-batch and the resident paths; the
-parallel and checkpoint paths are not ported yet).
+kpgnn_tpu/train/loop.py: the per-batch and the resident paths, with
+checkpoints and profiling; the parallel paths are not ported yet).
 
 Losses and metrics are computed under the batch masks: padded graph and
 node slots add zero to sums and to counts.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,18 +77,42 @@ def train_step(model, opt, batch: GraphBatch, loss: str = "l1",
     return lsum.detach(), cnt.detach()
 
 
+@contextlib.contextmanager
+def frozen_buffers(model) -> Iterator[None]:
+    """Within the block the model may update its buffers (a batch norm's
+    running statistics in train mode); on exit every buffer holds its
+    value from before the block again, bit for bit."""
+    saved = [(b, b.detach().clone()) for b in model.buffers()]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, v in saved:
+                b.copy_(v)
+
+
 @torch.no_grad()
 def eval_step(model, batch: GraphBatch, loss: str = "l1",
-              metric: str = "same", node_level: bool = False
-              ) -> Dict[str, torch.Tensor]:
+              metric: str = "same", node_level: bool = False,
+              bn_train_mode: bool = False) -> Dict[str, torch.Tensor]:
     """Sums of one batch as device tensors, for exact epoch aggregation:
     ``loss_sum`` and ``count``; ``correct`` (real items whose argmax is
     the label) for accuracy or cross entropy; ``mae_sum`` / ``mse_sum``
     when ``metric`` asks for an error the loss is not; and, for a 2-D
     graph-level y under an l1 or mse loss, ``abs_per_target``.  ``metric``
     is "same" (the loss), "mae", "mse" or "accuracy"; the items are the
-    real nodes under ``node_level``, else the real graphs."""
-    pred = model(batch, train=False)
+    real nodes under ``node_level``, else the real graphs.
+    ``bn_train_mode`` runs the forward in train mode, so batch norms
+    normalize with the batch's statistics (the SR25 protocol, reference:
+    train_SR.py:46-47), and discards the running-statistics updates, as
+    the JAX eval step discards its mutated ``batch_stats``; dropout, if
+    any, draws from a generator seeded 0 (the JAX step's fixed key)."""
+    if bn_train_mode:
+        gen = torch.Generator(device=batch.node_mask.device).manual_seed(0)
+        with frozen_buffers(model):
+            pred = model(batch, train=True, generator=gen)
+    else:
+        pred = model(batch, train=False)
     mask = _batch_target_mask(batch, node_level)
     lsum, cnt = _masked_loss(pred, batch.y, mask, loss)
     out = {"loss_sum": lsum, "count": cnt}
@@ -126,11 +151,13 @@ def train_epoch(model, opt, batches, loss: str = "l1",
 
 
 def evaluate(model, batches, loss: str = "l1", metric: str = "same",
-             node_level: bool = False) -> Dict[str, float]:
+             node_level: bool = False, bn_train_mode: bool = False
+             ) -> Dict[str, float]:
     """The epoch metrics over the real graphs (nodes, under
     ``node_level``) of all batches (``summarize_eval_sums``), with one
-    host sync."""
-    steps = [eval_step(model, b, loss, metric, node_level) for b in batches]
+    host sync; ``bn_train_mode`` as in ``eval_step``."""
+    steps = [eval_step(model, b, loss, metric, node_level, bn_train_mode)
+             for b in batches]
     sums = {k: torch.stack([s[k] for s in steps]).double().sum(0).cpu()
             .numpy() for k in steps[0]}
     return summarize_eval_sums(sums)
@@ -190,24 +217,39 @@ class Trainer:
     """Epoch loop with plateau LR on the validation metric, best-val
     gating of the test metrics and optional min-lr stopping, on one
     device.  ``metric_mode="min"`` tracks the validation loss, "max" its
-    accuracy; ``use_scheduler=False`` keeps the LR constant, as the
-    expressiveness scripts do.  The plateau schedule is ported in "min"
-    mode only, so "max" requires ``use_scheduler=False``.
-    ``eval_metric`` adds an error to every evaluation (``evaluate``'s
-    ``metric``: QM9 trains on MSE and reports the MAE).  ``node_level``
-    takes the loss and metrics over the real nodes (node heads).
-    ``resident`` ("auto", "on" or "off", ``resident_rule``) keeps a dense
-    or COO dataset on the device and gathers each batch there
-    (train/resident.py), in the loader's shuffle order."""
+    accuracy; the plateau schedule follows the same metric in the same
+    mode, or, with ``sched_on="loss"``, the validation loss in "min" mode
+    even on an accuracy task; ``use_scheduler=False`` keeps the LR
+    constant, as the expressiveness scripts do.  ``eval_metric`` adds an
+    error to every evaluation (``evaluate``'s ``metric``: QM9 trains on
+    MSE and reports the MAE).  ``bn_train_mode_eval`` evaluates with
+    batch-statistics norms and leaves the running statistics as they were
+    (``eval_step``'s ``bn_train_mode``; SR25).  ``node_level`` takes the
+    loss and metrics over the real nodes (node heads).  ``resident``
+    ("auto", "on" or "off", ``resident_rule``) keeps a dense or COO
+    dataset on the device and gathers each batch there
+    (train/resident.py), in the loader's shuffle order.
+
+    Checkpoints (train/checkpoint.py): ``cfg.load_path`` warm-starts the
+    model and the optimizer from a checkpoint; ``checkpoint_dir``, or
+    ``<cfg.save_dir>/checkpoints`` under ``cfg.save_checkpoints``, gets
+    one on every epoch whose validation metric is the best so far (the
+    ``max_checkpoints`` best kept, and ``best.pt``).  ``cfg.profile_dir``
+    gets a torch.profiler chrome trace of epoch 1's training (epoch 0's
+    when there is one epoch)."""
 
     model: torch.nn.Module
     cfg: TrainConfig
     loss: str = "l1"
     node_level: bool = False
     metric_mode: str = "min"
+    sched_on: str = "metric"
     use_scheduler: bool = True
     eval_metric: str = "same"
+    bn_train_mode_eval: bool = False
     logger: Optional[object] = None
+    checkpoint_dir: Optional[str] = None
+    max_checkpoints: int = 3
     device: str = "cuda"
     resident: str = "auto"
 
@@ -219,22 +261,23 @@ class Trainer:
             seed: Optional[int] = None,
             epoch_callback: Optional[Callable] = None):
         """Initialize the model from ``seed`` (on the CPU, so the weights
-        do not depend on the device), move it to the device and train.
-        Returns (model, results)."""
-        if self.cfg.load_path or self.cfg.save_checkpoints \
-                or self.cfg.profile_dir:
-            raise NotImplementedError(
-                "checkpoints and profiling are not ported yet "
-                "(ROADMAP.md, Queue 1)")
-        if self.metric_mode == "max" and self.use_scheduler:
-            raise NotImplementedError(
-                "the plateau LR schedule runs in 'min' mode only; pass "
-                "use_scheduler=False with metric_mode='max'")
+        do not depend on the device), or from ``cfg.load_path``, move it
+        to the device and train.  Returns (model, results)."""
+        from .checkpoint import CheckpointSaver, read_checkpoint
+
         device = resolve_device(self.device)
         seed = self.cfg.seed if seed is None else seed
-        model = init_parameters(self.model, seed).to(device)
+        model = init_parameters(self.model, seed)
+        warm = (read_checkpoint(self.cfg.load_path) if self.cfg.load_path
+                else None)
+        if warm is not None:        # after init, before the device move
+            model.load_state_dict(warm["model"], strict=True)
+        model = model.to(device)
         opt = make_optimizer(model.parameters(), self.cfg.lr,
                              self.cfg.l2_wd)
+        if warm is not None:
+            opt.load_state_dict(warm["opt"])
+            self.log(f"warm start from {self.cfg.load_path}")
         generator = torch.Generator(device=device).manual_seed(seed)
         cached: Dict[int, list] = {}
 
@@ -271,7 +314,8 @@ class Trainer:
             resident_epoch = make_resident_train_epoch(
                 model, opt, self.loss, self.node_level)
             resident_eval = make_resident_eval(
-                model, self.loss, self.node_level, self.eval_metric)
+                model, self.loss, self.node_level, self.eval_metric,
+                self.bn_train_mode_eval)
             self.log(f"resident store: {len(train_loader.graphs)} graphs "
                      f"on {device}, {train_store.nbytes()} B, "
                      f"{train_loader.mode} slots of {train_store.n_slot} "
@@ -289,7 +333,8 @@ class Trainer:
             if id(loader) not in cached:        # eval batches stay resident
                 cached[id(loader)] = list(on_device(loader))
             return evaluate(model, cached[id(loader)], self.loss,
-                            self.eval_metric, self.node_level)
+                            self.eval_metric, self.node_level,
+                            self.bn_train_mode_eval)
 
         def run_train():
             if not use_resident:
@@ -302,10 +347,21 @@ class Trainer:
                 order, train_loader.batch_size, train_store.num_graphs),
                 generator)
 
-        sched = ReduceLROnPlateau(factor=self.cfg.factor,
-                                  patience=self.cfg.patience,
-                                  min_lr=self.cfg.min_lr)
         maximize = self.metric_mode == "max"
+        sched = ReduceLROnPlateau(
+            factor=self.cfg.factor, patience=self.cfg.patience,
+            min_lr=self.cfg.min_lr,
+            mode="min" if self.sched_on == "loss" else self.metric_mode)
+        ckpt_dir = self.checkpoint_dir
+        if ckpt_dir is None and self.cfg.save_checkpoints \
+                and self.cfg.save_dir:
+            ckpt_dir = os.path.join(self.cfg.save_dir, "checkpoints")
+        saver = (None if ckpt_dir is None else CheckpointSaver(
+            ckpt_dir, self.max_checkpoints, maximize_metric=maximize,
+            logger=self.logger))
+        # trace the second epoch (past warm-up); the first if there is
+        # only one, so --num_epochs 1 still writes a trace
+        profile_epoch = 1 if self.cfg.num_epochs > 1 else 0
         key = "accuracy" if maximize else "loss"
         best_val = -math.inf if maximize else math.inf
         best_test: Dict[str, float] = {}
@@ -315,7 +371,15 @@ class Trainer:
         for epoch in range(self.cfg.num_epochs):
             try:
                 t0 = time.time()
-                train_loss, step_losses = run_train()
+                if self.cfg.profile_dir and epoch == profile_epoch:
+                    from ..utils.profiling import trace
+                    with trace(self.cfg.profile_dir,
+                               cuda=device.type == "cuda"):
+                        train_loss, step_losses = run_train()
+                    self.log(f"profiler trace of epoch {epoch} -> "
+                             f"{self.cfg.profile_dir}")
+                else:
+                    train_loss, step_losses = run_train()
                 row = {"epoch": epoch, "train_loss": train_loss,
                        "lr": get_lr(opt), "seconds": time.time() - t0,
                        "step_losses": step_losses}
@@ -326,11 +390,15 @@ class Trainer:
                     metric = val[key]
                     if self.use_scheduler:
                         lr = get_lr(opt)
-                        new_lr = sched.step(metric, lr)
+                        new_lr = sched.step(
+                            val["loss"] if self.sched_on == "loss"
+                            else metric, lr)
                         if new_lr != lr:
                             set_lr(opt, new_lr)
                     if metric > best_val if maximize else metric < best_val:
                         best_val, best_epoch = metric, epoch
+                        if saver is not None:
+                            saver.save(epoch, model, opt, metric)
                         if test_loader is not None:
                             best_test = run_eval(test_loader)
                             row.update({f"test_{k}": v

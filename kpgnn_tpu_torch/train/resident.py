@@ -347,11 +347,11 @@ def make_resident_train_epoch(model, opt, loss: str = "l1",
 
 
 def make_resident_eval(model, loss: str = "l1", node_level: bool = False,
-                       metric: str = "same"):
+                       metric: str = "same", bn_train_mode: bool = False):
     """(store, idx_chunks (S, B)) -> ``loop.evaluate``'s metrics over the
-    gathered batches."""
+    gathered batches (``bn_train_mode`` as there)."""
     def run(store, idx_chunks):
         return evaluate(model, (gather_any(store, idx) for idx in
                                 _rows(store, idx_chunks)),
-                        loss, metric, node_level)
+                        loss, metric, node_level, bn_train_mode)
     return run

@@ -143,16 +143,22 @@ def test_evaluate_reports_accuracy_over_real_graphs():
 
 
 def test_trainer_refuses_the_plateau_schedule_in_max_mode():
-    """The plateau schedule is ported in "min" mode only: an accuracy-gated
-    run must keep the LR constant, as the expressiveness scripts do."""
+    """The plateau schedule now runs in "max" mode as in the JAX Trainer
+    (kpgnn_tpu/train/lr.py:20-32): an accuracy-gated run with the
+    scheduler is no longer refused, and the schedule it steps tracks the
+    accuracy upwards."""
     from kpgnn_tpu_torch.train.config import TrainConfig
     from kpgnn_tpu_torch.train.loop import Trainer
+    from kpgnn_tpu_torch.train.lr import ReduceLROnPlateau
 
     trainer = Trainer(torch.nn.Linear(1, 1), TrainConfig(num_epochs=1),
                       loss="cross_entropy", metric_mode="max",
                       use_scheduler=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="'min' mode only"):
-        trainer.fit([])
+    _, res = trainer.fit([])
+    assert len(res["history"]) == 1 and res["history"][0]["lr"] == 1e-3
+    sched = ReduceLROnPlateau(patience=0, mode="max")
+    assert sched.step(0.5, 1.0) == 1.0 and sched.step(0.6, 1.0) == 1.0
+    assert sched.step(0.6, 1.0) == 0.5
 
 
 TINY = ["--K", "2", "--hidden_size", "16", "--num_layer", "2",

@@ -190,3 +190,69 @@ def test_native_prep_without_gxx_is_unavailable(monkeypatch, tmp_path):
     monkeypatch.setattr(native, "BUILD_ERROR", None)
     assert not native.available()
     assert "g++" in native.BUILD_ERROR
+
+
+def test_isolation_checks_cover_the_expressiveness_and_observability_modules():
+    """The checkpoint, EMA, seed, meter, profiling, trace-summary and
+    parity modules, the EXP/SR25 loaders and the five new scripts are
+    among the sources both isolation checks read and import."""
+    sources = {os.path.relpath(p, REPO) for p in port_sources()}
+    for mod in ("train/checkpoint.py", "train/ema.py", "utils/seed.py",
+                "utils/meters.py", "utils/profiling.py",
+                "utils/trace_summary.py", "utils/parity.py",
+                "data/expressiveness.py", "scripts/train_exp.py",
+                "scripts/train_sr.py", "scripts/run_simulation.py",
+                "scripts/run_search.py", "scripts/profile_step.py"):
+        assert os.path.join("kpgnn_tpu_torch", mod) in sources, mod
+    from kpgnn_tpu_torch.data.expressiveness import load_sr25
+    from kpgnn_tpu_torch.train.checkpoint import CheckpointSaver
+    assert load_sr25.__module__ == "kpgnn_tpu_torch.data.expressiveness"
+    assert CheckpointSaver.__module__ == "kpgnn_tpu_torch.train.checkpoint"
+
+
+def test_port_imports_without_matplotlib_or_networkx():
+    """Importing every module of the port loads neither matplotlib (the
+    simulation's sweep draws only where it imports, inside the call) nor
+    networkx, and works where both are blocked."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "import kpgnn_tpu_torch\n"
+        "for info in pkgutil.walk_packages(kpgnn_tpu_torch.__path__,\n"
+        "                                  'kpgnn_tpu_torch.'):\n"
+        "    importlib.import_module(info.name)\n"
+        "bad = sorted(m for m, v in sys.modules.items() if v is not None\n"
+        "             and m.split('.')[0] in ('matplotlib', 'networkx'))\n"
+        "print(bad)\n")
+    for blocked in ((), ("matplotlib", "networkx")):
+        pre = "".join(f"import sys; sys.modules[{m!r}] = None\n"
+                      for m in blocked)
+        proc = subprocess.run([sys.executable, "-c", pre + code], cwd=REPO,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, proc.stderr
+        assert proc.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("script,argv", [
+    ("train_exp", ["--folds", "2"]),
+    ("train_sr", []),
+    ("run_simulation", ["--n", "10", "--graphs", "1"]),
+    ("profile_step", ["--stages", "large"])])
+def test_expressiveness_scripts_without_cuda_raise(tmp_path, script, argv):
+    """The default device is cuda: without CUDA each new script raises
+    before it loads, generates or writes anything; --device cpu runs
+    (tests/test_torch_expressiveness_scripts.py,
+    tests/test_torch_observability.py)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    import importlib
+    mod = importlib.import_module(f"kpgnn_tpu_torch.scripts.{script}")
+    if script == "profile_step":
+        argv = argv + ["--out_dir", str(tmp_path / "s")]
+    else:
+        argv = argv + ["--save_dir", str(tmp_path / "s"), "--dataset_dir",
+                       str(tmp_path)]
+    for backend in (("pallas", "coo") if script != "profile_step"
+                    else (None,)):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            mod.main(argv + (["--backend", backend] if backend else []))
+    assert not (tmp_path / "s").exists()

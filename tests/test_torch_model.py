@@ -255,9 +255,13 @@ def test_train_zinc_main_on_the_coo_backend(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--backend", "banded"],
-                                  ["--save_checkpoints"],
-                                  ["--profile_dir", "prof"], ["--parallel"]])
+                                  ["--parallel", "node"],
+                                  ["--backend", "banded", "--bf16"],
+                                  ["--parallel"]])
 def test_train_zinc_refuses_unported_options(tmp_path, flag):
+    """Only the banded backend and --parallel are refused (checkpoints and
+    --profile_dir are ported: tests/test_torch_train_utils.py,
+    tests/test_torch_observability.py)."""
     from kpgnn_tpu_torch.scripts import train_zinc
 
     base = ["--dataset_dir", str(tmp_path), "--save_dir",
