@@ -152,6 +152,32 @@ Phases, each of which fails the run loudly:
      the k=4 plan, the simulation's D=32 and the sweep's D=64/32/21/16,
      and profile_step's large plan (D=34, scalar, 16,384 nodes; f32 sums
      under the hub row's tolerance).
+ 11. banded and device prep — run after 10: [banded] the flagship through
+     the banded plan (``--backend banded``: per batch, resident auto, and
+     ``--bf16``, one epoch each): no kernel launch, first steps equal to
+     the CPU's on banded, to coo's and to the pallas run's (rtol 1e-4;
+     bf16 within BF16_RTOL of the CPU's bf16 banded step and of the
+     pallas --bf16 run's), one Adam step of the first batch against the
+     same step on pallas and on coo on the card under the gradient gate
+     (``card_gate``; the card-against-CPU gate of the three backends is
+     logged as a witness), the logged resident decision and store bytes
+     against ``resident_rule`` and ``banded_store_nbytes``, the first
+     batch gathered from the BandedStore against the collated one (loss
+     and predictions, rtol 1e-5), the bf16 window product a GEMM kernel
+     of its own; KPGCN at CSL width on its gcn_norm plan under the
+     gradient gate against the CPU and equal to its pallas step, a plain
+     plan refused; halo-0 plans of the flagship and polymer batches
+     (every cross-tile edge spills, unpadded and padded) against coo on
+     the card, forward and x / table gradients, at every hop prefix;
+     ``profile_step.main(["--stages", "large,banded"])`` and
+     ``tune_banded.main(["--tiles", "128,256,512"])`` exit 0;
+     [device_prep] ``device_khop_dense`` on 64 flagship molecules, spd
+     and gd, equal to the host prep's ``collate_dense`` exactly.  The
+     time section then times the banded aggregation at the flagship
+     (per batch and from the store) and polymer shapes beside the kernel
+     path and the bound, eager and from a CUDA graph, with the step's
+     launches against pallas and coo, and prints a ``[banded]`` JSON
+     line.
 The last lines are the card's name and power limit, a ``kernels`` JSON
 line, and ``{"ok": true, "device": {...}}``.  The ``kernels`` line has one
 entry per kernel variant, timed on the flagship plan, with the launches
@@ -787,8 +813,9 @@ def profile_step(torch, step, step_ms, label, steps=3):
     device's idle share against the unprofiled step time, and the time of
     ``indexing_backward_kernel`` (the serialising backward of a gather
     into a small table, PERF.md).  Returns (device busy ms, launches,
-    idle share, indexing_backward ms) per step, or None where the
-    profiler recorded no kernel."""
+    idle share, indexing_backward ms, kernel names, {kernel name:
+    launches}) per step, or None where the profiler recorded no
+    kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -819,7 +846,8 @@ def profile_step(torch, step, step_ms, label, steps=3):
                     f" (x{e.count // steps})" for e in top))
     return (busy_ms, launches, 1 - busy_ms / step_ms,
             sum(e.self_device_time_total for e in ib) / 1e3 / steps,
-            [e.key for e in kernels])
+            [e.key for e in kernels],
+            {e.key: e.count / steps for e in kernels})
 
 
 EXP_EPOCHS, EXP_FOLDS, SR_EPOCHS = 2, 2, 3
@@ -1334,6 +1362,679 @@ def profile_phase(ctx):
     return w, wp, res
 
 
+def graph_ms(torch, fn, x, iters=50):
+    """Device time per call of ``fn(x)`` replayed from a CUDA graph (CUDA
+    events over ``iters`` replays): the op's kernels back to back, without
+    the host's launch cost between them.  None where the capture fails."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            fn(x)
+    except RuntimeError as e:
+        log(f"[time] CUDA graph capture failed: {str(e).splitlines()[0]}")
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_kernels(torch, fn, calls=5):
+    """The kernels that ``calls`` calls of ``fn`` launch (torch.profiler,
+    after one call outside the profile), as key_averages' CUDA events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+def kernel_times(torch, fn, calls=5):
+    """``fn``'s device time per call by kernel (``device_kernels``), as a
+    log phrase: the total, then the top kernels with their ms and
+    launches per call."""
+    ks = device_kernels(torch, fn, calls)
+    if not ks:
+        return "not measured (the profiler recorded no kernel)"
+    total = sum(e.self_device_time_total for e in ks) / 1e3 / calls
+    top = sorted(ks, key=lambda e: -e.self_device_time_total)[:6]
+    return (f"{total:.4f} ms in {sum(e.count for e in ks) / calls:.0f} "
+            "launches; " + "; ".join(
+                f"{e.key[:50]} {e.self_device_time_total / 1e3 / calls:.4f}"
+                f" (x{e.count / calls:g})" for e in top))
+
+
+def banded_vk(adj):
+    """The hop-k table's rows of a banded plan (1 for a one-hop plan)."""
+    return 1 if adj.countsk is None else adj.countsk.shape[2]
+
+
+def plan_text(b):
+    """A banded batch's plan as a log phrase."""
+    a = b.adj
+    spill = 0 if a.spill_senders is None else a.spill_senders.shape[0]
+    return (f"tile {a.tile}, halo {a.halo}, win {a.tile + 2 * a.halo}, "
+            f"n_pad {b.n_pad}, spill {spill}, mask "
+            f"{tuple(a.live.shape)} {str(a.live.dtype)[6:]}")
+
+
+def card_gate(ctx, label, name, cfg, batches, hp, loss):
+    """One step of ``cfg``'s model (initialized from SEED) on the card on
+    ``batches["banded"]`` against the same step on the card on each other
+    backend's batch of the same graphs in the same node layout, under the
+    gradient gate's bound (``grad_leaves``): each reference step replays
+    the banded step's ReLU branches, and its twin with every weight moved
+    by an ulp, also on the card, measures its f32 rounding.  Every other
+    op of the step runs the same kernels on both sides, so the comparison
+    isolates the aggregation.  The loss within rtol 1e-4, every gradient
+    inside the bound, every flipped ReLU input within 1e-4 of its call's
+    largest; no kernel launch on banded."""
+    torch = ctx.torch
+    from kpgnn_tpu_torch.models.factory import make_model
+    from kpgnn_tpu_torch.nn.inits import init_parameters
+
+    def fresh():
+        return init_parameters(make_model(cfg), SEED)
+
+    def step(batch, moved=False):
+        model = ulp_moved(torch, fresh()) if moved else fresh()
+        return ctx.step_grads(model.to(ctx.dev), batch.to(ctx.dev), *hp,
+                              loss)
+    rec = []
+    with relu_branches(torch, rec, replay=False):
+        loss_b, grads_b, v = step(batches["banded"])
+    check(not v, f"{name}: the banded step launched {v}")
+    for ref, batch in batches.items():
+        if ref == "banded":
+            continue
+        with relu_branches(torch, rec, replay=True) as flips:
+            loss_r, grads_r, _ = step(batch)
+        with relu_branches(torch, rec, replay=True):
+            _, grads_u, _ = step(batch, moved=True)
+        leaves = grad_leaves(grads_b, grads_r, grads_r, grads_u, name)
+        over = [t for t in leaves if t[1] > 1.0]
+        rel = abs(loss_b - loss_r) / abs(loss_r)
+        flips_line, flip_rel = flip_text(flips, rec)
+        log(f"[{label}] {name}: banded against {ref}, both on the card: "
+            f"loss {loss_b:.7f} / {loss_r:.7f} (rel diff {rel:.2e}); "
+            f"{flips_line} in the {ref} step; {len(leaves)} gradients under "
+            f"the gate, worst by |err| / leaf max: {leaf_text(max(leaves))}; "
+            f"worst by |err| / tol: "
+            f"{leaf_text(max(leaves, key=lambda t: t[1]))}")
+        if over:
+            log(f"[{label}] {name}: {len(over)} gradients outside the gate "
+                "against " + ref + ": "
+                + "; ".join(leaf_text(t) for t in over))
+        check(not over and rel <= 1e-4 and flip_rel <= 1e-4,
+              f"{name}: banded against {ref} on the card: loss {rel:.2e}, "
+              f"{len(over)} gradients outside the gate, a flipped ReLU "
+              f"input {flip_rel:.2e} of its call's largest")
+
+
+def banded_train_phase(ctx):
+    """[banded]: the flagship at full width through the banded plan,
+    per batch (``--backend banded --resident off``), one epoch through
+    ``script_phase``: finite losses, no kernel launch, a first step equal
+    to the CPU's on banded and to --backend coo's on the card (rtol
+    1e-4), and to the card's pallas run's ([train]).  Then one Adam step
+    of the first batch on the card against the same step on pallas and
+    on coo on the card, under the gradient gate (``card_gate``); and, as
+    a witness (logged, not gated), each of the three against the CPU
+    under the gradient gate: on the flagship step the card and the CPU
+    part at 0.8-1.2 of the gate's bound whatever the backend (PERF.md
+    §6), so the CPU comparison cannot single out the aggregation.
+    Returns the run's rows."""
+    sl = SimpleNamespace(**dict(
+        vars(ctx.zinc), L=0, cpu_mode="banded",
+        argv=train_argv(ctx.work, os.path.join(ctx.work, "banded"), "cuda")
+        + ["--backend", "banded", "--resident", "off"],
+        loaders={"banded": ctx.banded_tl, "coo": ctx.zinc.loaders["coo"]}))
+    log(f"[banded] flagship plan: {plan_text(ctx.banded_tl.example())}; "
+        f"the loader's pins: halo {ctx.banded_tl.banded_halo}, spill pad "
+        f"{ctx.banded_tl.banded_spill_pad}")
+    rows, losses, _, _ = ctx.script_phase("banded", sl, ("coo",))
+    rel = abs(losses[0] - ctx.zlosses[0]) / abs(ctx.zlosses[0])
+    log(f"[banded] first-step loss {losses[0]:.7f}, the card's pallas run's "
+        f"{ctx.zlosses[0]:.7f} (rel diff {rel:.2e})")
+    check(rel <= 1e-4, f"banded: first-step loss differs from the pallas "
+          f"run's by {rel:.2e} > 1e-4")
+    hp = (ctx.args.lr, ctx.args.l2_wd)
+    loaders = {"banded": ctx.banded_tl, "pallas": ctx.zinc.loaders["pallas"],
+               "coo": ctx.zinc.loaders["coo"]}
+    batches = {k: l.example() for k, l in loaders.items()}
+    check(len({b.n_pad for b in batches.values()}) == 1,
+          f"banded: the backends' first batches have n_pad "
+          f"{ {k: b.n_pad for k, b in batches.items()} }")
+    card_gate(ctx, "banded", f"KPGINPlus K={K} L={L}", ctx.mcfg, batches, hp,
+              "l1")
+    worst = {}
+    for name, loader in loaders.items():
+        expect = ({ctx.fused_v: L, ctx.gather_v: L} if name == "pallas"
+                  else {})
+        ctx.gradient_gate("banded", f"KPGINPlus K={K} L={L} {name}, card "
+                          "against the CPU", ctx.mcfg, loader, hp, "l1",
+                          expect, gated=False)
+        worst[name] = ctx.gradient_gate.worst
+    log("[banded] witness, the flagship step on the card against the CPU, "
+        "worst |err| / tol by backend: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in worst.items()))
+    return rows
+
+
+def banded_resident_phase(ctx, per_batch_rows):
+    """[banded] resident: the same run with --resident auto: the logged
+    decision equal to ``resident_rule``'s, the store's bytes equal to
+    ``banded_store_nbytes`` at the shapes planned over every split; the
+    first batch gathered from the BandedStore against the same graphs
+    collated (loss and every graph's prediction, rtol 1e-5); each epoch's
+    seconds and one step's time, resident against per batch, and the
+    per-batch step's profile (``ctx.step_profiles``).  Returns the store
+    and its gathered first batch."""
+    torch = ctx.torch
+    from kpgnn_tpu_torch.models.factory import make_model
+    from kpgnn_tpu_torch.nn.inits import init_parameters
+    from kpgnn_tpu_torch.scripts import common
+    from kpgnn_tpu_torch.train.loop import (_masked_loss, resident_rule,
+                                            train_step)
+    from kpgnn_tpu_torch.train.resident import (banded_store_nbytes,
+                                                build_banded_store,
+                                                gather_any,
+                                                plan_banded_store_shapes)
+    from kpgnn_tpu_torch.train.state import make_optimizer
+
+    go, why = resident_rule("auto", ctx.banded_tl)
+    save = os.path.join(ctx.work, "banded_resident")
+    sl = SimpleNamespace(**dict(
+        vars(ctx.zinc), L=0, cpu_mode="banded",
+        argv=train_argv(ctx.work, save, "cuda") + ["--backend", "banded"],
+        loaders={"banded": ctx.banded_tl}))
+    rows = ctx.script_phase("banded resident", sl, ())[0]
+    text = run_log(save)
+    line = [x.split("] ", 1)[-1] for x in text.splitlines()
+            if "resident store:" in x or "per-batch epochs" in x]
+    others = [common.prepare(ctx.splits[k], ctx.args, f"ZINC_{k}")
+              for k in ("val", "test")]
+    shapes = plan_banded_store_shapes(
+        list(ctx.zinc_train) + [g for gs in others for g in gs])
+    nbytes = banded_store_nbytes(ctx.zinc_train, shapes[2], shapes[0],
+                                 shapes[1], shapes[3], ctx.lk["v1"],
+                                 ctx.lk["vk"])
+    log(f"[banded] resident auto decides: {why}; the run logged: "
+        f"{line[0] if line else 'no decision'}; store shapes over every "
+        f"split (tile, halo, n_slot, spill) {shapes}, banded_store_nbytes "
+        f"{nbytes} B; train epoch {rows[0]['seconds']:.3f} s resident, "
+        f"{per_batch_rows[0]['seconds']:.3f} s per batch")
+    check(bool(line) and line[0].startswith(
+        "resident store:" if go else "per-batch epochs")
+        and why in line[0], f"banded resident: the run logged {line}, the "
+        f"rule decides {go} ({why})")
+    check(not go or f" {nbytes} B," in line[0],
+          f"banded resident: the store's bytes in {line[0]} are not "
+          f"banded_store_nbytes's {nbytes}")
+    store = build_banded_store(ctx.zinc_train, ctx.lk["v1"], ctx.lk["vk"],
+                               shapes=shapes, device=ctx.dev)
+    check(store.nbytes() == nbytes, f"banded store {store.nbytes()} B != "
+          f"banded_store_nbytes {nbytes} B")
+    idx = torch.arange(BATCH, device=ctx.dev)
+    gathered = gather_any(store, idx)
+    collated = ctx.banded_tl._collate(ctx.zinc_train[:BATCH]).to(ctx.dev)
+
+    def first(batch):
+        model = init_parameters(make_model(ctx.mcfg), SEED).to(ctx.dev)
+        with torch.no_grad():
+            pred = model(batch, train=True)
+            lsum, cnt = _masked_loss(pred, batch.y, batch.graph_mask, "l1")
+        return float(lsum / cnt), pred[:BATCH]
+    (loss_r, pred_r), (loss_p, pred_p) = first(gathered), first(collated)
+    pred_err = float((pred_r - pred_p).abs().max())
+    pscale = float(pred_p.abs().max())
+    log(f"[banded] the first batch gathered from the store ({gathered.n_pad}"
+        f" rows, {plan_text(gathered)}) against collated ({collated.n_pad} "
+        f"rows): loss {loss_r:.7f} / {loss_p:.7f} (rel diff "
+        f"{abs(loss_r - loss_p) / abs(loss_p):.2e}); {BATCH} predictions, "
+        f"max |err| {pred_err:.2e} of max {pscale:.2e}")
+    check(abs(loss_r - loss_p) <= 1e-5 * abs(loss_p)
+          and pred_err <= 1e-5 * max(pscale, 1.0),
+          f"banded: the gathered batch's first step differs from the "
+          f"collated one's (loss {loss_r} / {loss_p}, predictions "
+          f"{pred_err:.2e})")
+    model = init_parameters(make_model(ctx.mcfg), SEED).to(ctx.dev)
+    opt = make_optimizer(model.parameters(), 1e-3)
+    host_batch = ctx.banded_tl._collate(ctx.zinc_train[:BATCH])
+    for how, step in (
+            ("resident", lambda: train_step(model, opt,
+                                            gather_any(store, idx))),
+            ("per-batch", lambda: train_step(model, opt,
+                                             host_batch.to(ctx.dev)))):
+        ms = host_step_ms(torch, step)
+        log(f"[time] banded {how} train step {ms:.2f} ms")
+        if how == "per-batch":
+            ctx.step_profiles["banded per-batch"] = profile_step(
+                torch, step, ms, f"banded {how}")
+    return store, gathered
+
+
+def banded_bf16_phase(ctx):
+    """[banded] --bf16: one epoch per batch: finite losses, no kernel
+    launch, a first step within BF16_RTOL of the CPU's bf16 banded step
+    and of the card's --backend pallas --bf16 run's ([bf16]); the window
+    product of the bf16 aggregation runs as a GEMM kernel that the f32
+    aggregation does not run (its profile)."""
+    torch = ctx.torch
+    from kpgnn_tpu_torch.ops.banded import banded_khop_aggregate
+
+    sl = SimpleNamespace(**dict(
+        vars(ctx.zinc), L=0, cpu_mode="banded", cfg=ctx.bmcfg,
+        rtol=BF16_RTOL,
+        argv=train_argv(ctx.work, os.path.join(ctx.work, "banded_bf16"),
+                        "cuda")
+        + ["--backend", "banded", "--resident", "off", "--bf16"],
+        loaders={"banded": ctx.banded_tl}))
+    _, losses, _, _ = ctx.script_phase("banded bf16", sl, ())
+    rel = abs(losses[0] - ctx.blosses[0]) / abs(ctx.blosses[0])
+    log(f"[banded] bf16 first-step loss {losses[0]:.7f}, the card's pallas "
+        f"--bf16 run's {ctx.blosses[0]:.7f} (rel diff {rel:.2e}, bound "
+        f"{BF16_RTOL:g})")
+    check(rel <= BF16_RTOL, f"banded bf16: first-step loss differs from the "
+          f"pallas --bf16 run's by {rel:.2e}")
+    adj = ctx.banded_tl.example().adj.to(ctx.dev)
+    n = adj.n_nodes
+    gen = torch.Generator(device=ctx.dev).manual_seed(3)
+    t1 = torch.randn(adj.counts1.shape[1], H, device=ctx.dev, generator=gen)
+    tk = torch.randn(adj.countsk.shape[2], H, device=ctx.dev, generator=gen)
+    x = torch.randn(K, n, H, device=ctx.dev, generator=gen)
+    names = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype)
+        out = banded_khop_aggregate(xd, t1, tk, adj, hop_major=True)
+        check(out.dtype == dtype, f"banded: a {dtype} aggregation returned "
+              f"{out.dtype}")
+        names[dtype] = {e.key for e in device_kernels(
+            torch, lambda: banded_khop_aggregate(xd, t1, tk, adj,
+                                                 hop_major=True))}
+
+    def gemms(keys):
+        return sorted(k[:80] for k in keys if any(
+            w in k.lower() for w in ("gemm", "nvjet", "xmma", "cutlass")))
+    own16 = names[torch.bfloat16] - names[torch.float32]
+    log(f"[banded] the f32 aggregation's GEMM kernels "
+        f"{gemms(names[torch.float32])}; the bf16 one's "
+        f"{gemms(names[torch.bfloat16])}, of them not in the f32 one's "
+        f"{gemms(own16)}")
+    if not names[torch.float32]:
+        log("[banded] the profiler recorded no kernel: the bf16 GEMM not "
+            "measured")
+    else:
+        check(gemms(own16), "banded bf16: the window product ran no GEMM "
+              "kernel of its own in bf16")
+
+
+def banded_kpgcn_phase(ctx):
+    """[banded] KPGCN: one AdamW step of KPGCN at CSL width on a CSL batch
+    through ``collate_banded(gcn_norm=True)`` under the gradient gate
+    against the CPU, no kernel launch; its loss equal to the card's
+    pallas step's (rtol 1e-4); a plain plan must raise the ValueError."""
+    torch = ctx.torch
+    from kpgnn_tpu_torch.models.factory import make_model
+    from kpgnn_tpu_torch.nn.inits import init_parameters
+    from kpgnn_tpu_torch.scripts import common, train_csl
+    from kpgnn_tpu_torch.train.loader import GraphLoader
+
+    fargs = train_csl.parser().parse_args(csl_argv(
+        os.path.join(ctx.work, "csl"), "cuda", "banded", "KPGCN"))
+    fcfg = common.model_config(fargs, input_encoder=("linear", 1),
+                               task="graph_classification", output_size=10)
+    lk = common.loader_kwargs(fargs, fcfg)
+    check(lk.get("banded_gcn_norm") is True,
+          f"banded: KPGCN's loader kwargs {lk}")
+    bl = GraphLoader(ctx.ctrain, CSL_BATCH, shuffle=True, seed=SEED, **lk)
+    b = bl.example()
+    check(b.adj.sender_scaled, "banded: KPGCN's plan is not sender-scaled")
+    log(f"[banded] KPGCN CSL batch: {plan_text(b)}")
+    hp = (fargs.lr, fargs.l2_wd)
+    ctx.gradient_gate("banded", f"KPGCN K={CSL_K} L={CSL_L} banded gcn_norm",
+                      fcfg, bl, hp, "cross_entropy", {})
+
+    def card_loss(batch):
+        model = init_parameters(make_model(fcfg), SEED).to(ctx.dev)
+        return ctx.step_grads(model, batch.to(ctx.dev), *hp,
+                              "cross_entropy")[0]
+    lb, lp = card_loss(b), card_loss(ctx.ctl.example())
+    rel = abs(lb - lp) / abs(lp)
+    log(f"[banded] KPGCN step loss on the card: banded {lb:.7f}, pallas "
+        f"{lp:.7f} (rel diff {rel:.2e})")
+    check(rel <= 1e-4, f"banded KPGCN: loss differs from pallas by {rel:.2e}")
+    plain = GraphLoader(ctx.ctrain, CSL_BATCH, **dict(
+        lk, banded_gcn_norm=False)).example().to(ctx.dev)
+    model = init_parameters(make_model(fcfg), SEED).to(ctx.dev)
+    try:
+        model(plain, train=False)
+    except ValueError as e:
+        check("gcn_norm" in str(e), f"banded KPGCN: plain plan raised {e}")
+        log(f"[banded] KPGCN on a plain plan raises: {e}")
+    else:
+        raise SmokeFailure("banded: KPGCN ran on a plain plan")
+
+
+def polymer_graphs():
+    """profile_step's large-stage graphs: 2 x 8,192-node polymers."""
+    from kpgnn_tpu_torch.data.synthetic import synthetic_polymers
+    from kpgnn_tpu_torch.scripts import profile_step as ps
+    return synthetic_polymers(ps.LARGE_GRAPHS, ps.LARGE_NODES,
+                              K=ps.LARGE_K, seed=0)
+
+
+def banded_spill_phase(ctx):
+    """[banded] spill: on the flagship first batch and the polymer batch,
+    plans with halo=0 (every cross-tile edge spills), unpadded and padded
+    to a loader-style spill_pad: the aggregation's forward and its x and
+    table gradients on the card against the COO backend's
+    (``ops/segment.khop_aggregate``) on the card, at every hop prefix
+    k=1..K on the padded plan (rows of hops >= k and the pads' sentinel
+    rows must drop).  Tolerances as phase 2's: 1e-5 plus, for the
+    forward and dx, 1e-6 of the largest sum of |terms| and, for the
+    table gradients, 2 sqrt(E) 2^-24 of it (E terms summed)."""
+    torch = ctx.torch
+    from kpgnn_tpu_torch.graph.batch import collate, collate_banded
+    from kpgnn_tpu_torch.ops.adjacency import khop_aggregate_adj
+    from kpgnn_tpu_torch.scripts import profile_step as ps
+
+    gen = torch.Generator(device=ctx.dev).manual_seed(5)
+
+    def hold(label, badj, cadj, k, D):
+        n = cadj.n_nodes
+        v1, vk = badj.counts1.shape[1], banded_vk(badj)
+        x = torch.randn(n, k, D, device=ctx.dev, generator=gen)
+        t1 = torch.randn(v1, D, device=ctx.dev, generator=gen)
+        tk = torch.randn(vk, D, device=ctx.dev, generator=gen)
+        w = torch.randn(n, k, D, device=ctx.dev, generator=gen)
+
+        def run(adj, xx, a1, ak, ww):
+            xx, a1, ak = (v.clone().requires_grad_(True)
+                          for v in (xx, a1, ak))
+            out = khop_aggregate_adj(adj, xx, a1, ak if k > 1 else None)
+            (out * ww).sum().backward()
+            return out.detach(), xx.grad, a1.grad, (ak.grad if k > 1
+                                                    else None)
+        got = run(badj, x, t1, tk, w)
+        want = run(cadj, x, t1, tk, w)
+        absum = run(cadj, x.abs(), t1.abs(), tk.abs(), w.abs())
+        n_terms = int(cadj.edge_mask.sum()) * k
+        rel = (1e-6, 1e-6, 2 * math.sqrt(n_terms) * 2.0 ** -24,
+               2 * math.sqrt(n_terms) * 2.0 ** -24)
+        msg = []
+        for what, g_, w_, a_, r in zip(("fwd", "dx", "d table1", "d tablek"),
+                                       got, want, absum, rel):
+            if w_ is None:
+                continue
+            tol = 1e-5 + r * float(a_.max())
+            err = float((g_ - w_).abs().max())
+            msg.append(f"{what} {err:.2e} (tol {tol:.1e})")
+            check(err <= tol, f"banded spill {label} k={k} {what}: max "
+                  f"|err| {err:.3e} > {tol:.3e}")
+        return ", ".join(msg)
+
+    cases = [("flagship", ctx.zinc_train[:BATCH], K, H, ctx.lk["v1"],
+              ctx.lk["vk"]),
+             ("polymer", polymer_graphs(), ps.LARGE_K,
+              ps.LARGE_HIDDEN // ps.LARGE_K, 5, 32)]
+    for label, graphs, kk, D, v1, vk in cases:
+        b = collate_banded(graphs, v1=v1, vk=vk, halo=0)
+        n_spill = b.adj.spill_senders.shape[0]
+        pad = -(-n_spill // 1024) * 1024 + 1024
+        bp = collate_banded(graphs, v1=v1, vk=vk, halo=0, n_pad=b.n_pad,
+                            spill_pad=pad)
+        coo = collate(graphs, n_pad=b.n_pad).adj.to(ctx.dev)
+        badj, padj = b.adj.to(ctx.dev), bp.adj.to(ctx.dev)
+        log(f"[banded] spill {label}: halo 0, {plan_text(b)} of "
+            f"{int(coo.edge_mask.sum())} union edges x {kk} hops; padded "
+            f"to {pad} (sentinel row {kk * b.n_pad})")
+        log(f"[banded] spill {label} k={kk} unpadded: "
+            + hold(label, badj, coo, kk, D))
+        for k in range(1, kk + 1):
+            log(f"[banded] spill {label} k={k} padded: "
+                + hold(f"{label} padded", padj.slice_hops(k),
+                       coo.slice_hops(k), k, D))
+
+
+def banded_large_phase(ctx):
+    """[banded] large: ``profile_step.main(["--stages", "large,banded"])``
+    exits 0; both stages' step times and top device ops, the same model
+    on the same polymers, kernel plan against banded plan."""
+    import io
+    torch = ctx.torch
+    from kpgnn_tpu_torch.scripts import profile_step
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = profile_step.main(["--stages", "large,banded", "--out_dir",
+                                     os.path.join(ctx.work, "banded_prof")])
+    except SystemExit as e:
+        log(buf.getvalue())
+        raise SmokeFailure(f"profile_step large,banded exited with {e.code}")
+    torch.cuda.synchronize()
+    keep, top = [], 0
+    for x in buf.getvalue().splitlines():
+        if x.startswith(("large-graph", "banded", "[stage", "top ops")):
+            keep.append(x)
+            top = 6 if x.startswith("top ops") else 0
+        elif top:
+            keep.append(x)
+            top -= 1
+    log(f"[banded] profile_step --stages large,banded: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s; stage times and top device ops:"
+        "\n" + "\n".join(f"[profile_step] {x}" for x in keep))
+    check(set(res) == {"large", "banded"}, f"profile_step returned {res}")
+    return res
+
+
+def banded_tune_phase(ctx):
+    """[banded] tune: ``tune_banded.main(["--tiles", "128,256,512"])`` at
+    its defaults (2 x 8,192 nodes, K=3, D=102): three rows and a
+    best_tile."""
+    import io
+    from kpgnn_tpu_torch.scripts import tune_banded
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = tune_banded.main(["--tiles", "128,256,512"])
+    rows = [json.loads(x) for x in buf.getvalue().splitlines()
+            if x.startswith("{")]
+    log("[banded] tune_banded --tiles 128,256,512:\n"
+        + "\n".join(f"[tune_banded] {json.dumps(r)}" for r in rows))
+    check(len(rows) == 4 and set(res) == {"128", "256", "512"}
+          and rows[-1].get("best_tile") in (128, 256, 512),
+          f"tune_banded printed {rows}")
+
+
+def device_prep_phase(ctx):
+    """[device_prep]: 64 of the flagship fixture's molecules padded to
+    the dense loader's n_slot, kernel spd and gd: ``device_khop_dense``
+    on the card gives the host prep's ``collate_dense`` hop_attr, counts1
+    and countsk exactly (integer codes and counts; TF32 is off); its ms
+    (CUDA events) beside the host prep's seconds for the same graphs."""
+    import dataclasses
+    import numpy as np
+    torch = ctx.torch
+    from kpgnn_tpu_torch.graph.batch import collate_dense
+    from kpgnn_tpu_torch.prep.device import device_khop_dense
+    from kpgnn_tpu_torch.prep.khop import extract_graphs
+    from kpgnn_tpu_torch.scripts import common
+    from kpgnn_tpu_torch.train.loader import GraphLoader
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "device_prep: TF32 is on")
+    raw = ctx.splits["train"][:BATCH]
+    v1, vk = ctx.lk["v1"], ctx.lk["vk"]
+    n_slot = GraphLoader(ctx.zinc_train, BATCH, mode="dense", v1=v1,
+                         vk=vk).n_slot
+    A = np.zeros((BATCH, n_slot, n_slot), np.float32)
+    At = np.zeros((BATCH, n_slot, n_slot), np.int32)
+    for b, g in enumerate(raw):
+        u, v = np.asarray(g["edge_index"])
+        A[b, u, v] = 1.0
+        At[b, u, v] = np.asarray(g["edge_attr"]).reshape(-1)
+    a = torch.from_numpy(A).to(ctx.dev)
+    attr = torch.from_numpy(np.ascontiguousarray(At.transpose(0, 2, 1))
+                            ).to(ctx.dev)
+    for kernel in ("spd", "gd"):
+        cfg = dataclasses.replace(common.khop_config(ctx.args), kernel=kernel)
+        t0 = time.perf_counter()
+        graphs = extract_graphs(raw, cfg)
+        host_s = time.perf_counter() - t0
+        host = collate_dense(graphs, n_slot=n_slot, v1=v1, vk=vk,
+                             g_pad=BATCH).adj
+        kw = dict(K=cfg.K, max_edge_attr_num=cfg.max_edge_attr_num,
+                  kernel=kernel, v1=v1, vk=vk)
+        dev_adj, pe = device_khop_dense(a, attr, **kw)
+        torch.cuda.synchronize()
+        same = {f: torch.equal(getattr(dev_adj, f).cpu(), getattr(host, f))
+                for f in ("hop_attr", "counts1", "countsk")}
+        ms = time_ms(torch, lambda x: device_khop_dense(x, attr, **kw), [a],
+                     iters=20, warmup=3)
+        log(f"[device_prep] {kernel}: {BATCH} molecules in n_slot {n_slot}, "
+            f"K={cfg.K}: device_khop_dense {ms:.3f} ms on the card, the host "
+            f"prep (extract_graphs) {host_s:.3f} s; equal to collate_dense's "
+            f"{same}; pe {tuple(pe.shape)}")
+        check(all(same.values()), f"device_prep {kernel}: differs from the "
+              f"host prep in {[f for f, ok in same.items() if not ok]}")
+
+
+def banded_times(ctx, gathered):
+    """[banded] times (CUDA events, rotating inputs): the hop-major banded
+    aggregation, forward and forward + backward (x and both tables), on
+    the flagship first batch (K=8, D=104; per batch and as gathered from
+    the store) and the polymer batch (K=3, D=34), each beside the kernel
+    path's ``khop_spmm`` on the same graphs and D and beside its bound:
+    the larger of 2·K·T·tile·win·D FLOPs at F32_FLOPS and the f32 mask,
+    the windows and the output at HBM_BYTES_PER_S (forward + backward:
+    twice both).  Each op is timed as phase 9 times the kernel, and also
+    replayed from a CUDA graph (``graph_ms``): the banded op launches ~20
+    kernels a forward, and without the graph the host's launch cost sets
+    its time.  Then the flagship train step's launches on banded
+    against pallas and coo, by kernel name, and the aggregation's device
+    time by kernel.  Prints the [banded] JSON line."""
+    torch, spmm = ctx.torch, ctx.spmm
+    from kpgnn_tpu_torch.graph.batch import collate_banded
+    from kpgnn_tpu_torch.ops.banded import banded_khop_aggregate
+    from kpgnn_tpu_torch.scripts import profile_step as ps
+
+    gen = torch.Generator(device=ctx.dev).manual_seed(7)
+    flag = ctx.banded_tl.example()
+    poly = collate_banded(polymer_graphs(), v1=5, vk=32)
+    LD = ps.LARGE_HIDDEN // ps.LARGE_K
+    shapes = [("flagship per batch", flag.adj.to(ctx.dev), ctx.plan, K, H),
+              ("flagship from the store", gathered.adj, None, K, H),
+              ("polymer", poly.adj.to(ctx.dev), ctx.lplan, ps.LARGE_K, LD)]
+    entries = []
+    for label, adj, plan, kk, D in shapes:
+        n = adj.n_nodes
+        t1 = torch.randn(adj.counts1.shape[1], D, device=ctx.dev,
+                         generator=gen).requires_grad_(True)
+        tk = torch.randn(banded_vk(adj), D, device=ctx.dev,
+                         generator=gen).requires_grad_(True)
+        ops = {"banded": (n, lambda x: banded_khop_aggregate(
+            x, t1, tk, adj, hop_major=True))}
+        if plan is not None:
+            ops["kernel"] = (plan.counts1.shape[0], lambda x: spmm.khop_spmm(
+                x, t1, tk, plan, hop_major=True))
+        ms = {}
+        for name, (rows, agg) in ops.items():
+            xs = [torch.randn(kk, rows, D, device=ctx.dev, generator=gen
+                              ).requires_grad_(True) for _ in range(4)]
+            g = torch.randn(kk, rows, D, device=ctx.dev, generator=gen)
+
+            def fwd(x):
+                with torch.no_grad():
+                    return agg(x)
+
+            def fwdbwd(x):
+                return torch.autograd.grad(agg(x), (x, t1, tk), g)
+            ms[name] = (time_ms(torch, fwd, xs), time_ms(torch, fwdbwd, xs),
+                        graph_ms(torch, fwd, xs[0]),
+                        graph_ms(torch, fwdbwd, xs[0]))
+        T, tile, win = adj.live.shape[1:]
+        flops = 2 * kk * T * tile * win * D
+        nbytes = 4 * (kk * T * tile * win + kk * T * win * D + kk * n * D)
+        t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
+        bound = max(t_ops, t_bytes) * 1e3
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        spill = 0 if adj.spill_senders is None else adj.spill_senders.shape[0]
+        kernel = ms.get("kernel", (None,) * 4)
+        e = dict(shape=label, K=kk, D=D, n_pad=n, tile=tile,
+                 halo=adj.halo, win=win, spill=spill,
+                 ms=ms["banded"][0], fwdbwd_ms=ms["banded"][1],
+                 graph_ms=ms["banded"][2], graph_fwdbwd_ms=ms["banded"][3],
+                 bound_ms=bound, fwdbwd_bound_ms=2 * bound, bound_by=by,
+                 kernel_ms=kernel[0], kernel_fwdbwd_ms=kernel[1],
+                 kernel_graph_ms=kernel[2], kernel_graph_fwdbwd_ms=kernel[3])
+        entries.append(e)
+
+        def pair(t):
+            return " / ".join("not measured" if v is None else f"{v:.4f}"
+                              for v in t)
+        log(f"[time] banded {label} K={kk} D={D}: forward / +backward "
+            f"{pair(ms['banded'][:2])} ms, replayed from a CUDA graph "
+            f"{pair(ms['banded'][2:])} ms (bound {bound:.4f} / "
+            f"{2 * bound:.4f} by {by}); the kernel path's khop_spmm "
+            + (f"{pair(kernel[:2])} ms, from a CUDA graph "
+               f"{pair(kernel[2:])} ms" if plan is not None
+               else "not timed (no plan of this layout)"))
+    # the flagship train step's launches, banded against pallas and coo
+    # per batch on the same 64 graphs (profiles of [time], [resident])
+    prof = {k: ctx.step_profiles.get(f"{k} per-batch")
+            for k in ("banded", "pallas", "coo")}
+    if all(p is not None for p in prof.values()):
+        for other in ("pallas", "coo"):
+            diff = Counter(prof["banded"][5])
+            diff.subtract(prof[other][5])
+            top = sorted(((v, k) for k, v in diff.items() if v),
+                         key=lambda t: -abs(t[0]))[:8]
+            log(f"[banded] flagship train step launches: banded "
+                f"{prof['banded'][1]:.0f}, {other} {prof[other][1]:.0f}; "
+                f"by kernel, banded minus {other}: "
+                + "; ".join(f"{k[:60]} {v:+.0f}" for v, k in top))
+    # where the aggregation's device time goes, by kernel
+    adj, kk, D = shapes[0][1], shapes[0][3], shapes[0][4]
+    x = torch.randn(kk, adj.n_nodes, D, device=ctx.dev, generator=gen,
+                    requires_grad=True)
+    t1 = torch.randn(adj.counts1.shape[1], D, device=ctx.dev,
+                     generator=gen, requires_grad=True)
+    tk = torch.randn(banded_vk(adj), D, device=ctx.dev, generator=gen,
+                     requires_grad=True)
+    g = torch.randn_like(x)
+    for what, fn in (
+            ("forward", lambda: banded_khop_aggregate(
+                x.detach(), t1.detach(), tk.detach(), adj, hop_major=True)),
+            ("forward + backward", lambda: torch.autograd.grad(
+                banded_khop_aggregate(x, t1, tk, adj, hop_major=True),
+                (x, t1, tk), g))):
+        log(f"[banded] flagship per batch, {what}, device ms by kernel: "
+            + kernel_times(torch, fn))
+    log("[banded] " + json.dumps({"card": card_line(), "times": entries}))
+    return entries
+
+
 def main():
     import torch
 
@@ -1374,6 +2075,9 @@ def main():
     kind = torch.cuda.get_device_name(0)
 
     marks = [("start", time.perf_counter())]
+    # train-step profiles by "<backend> <resident|per-batch>", for the
+    # banded step's launches against the others'
+    step_profiles = {}
 
     def mark(name):
         """Ends the phase ``name``: its seconds go on the [phases] line."""
@@ -1922,7 +2626,9 @@ def main():
             launches at width sl.D and per eval step L fused (none at
             L = 0: the coo and dense backends), and its first-step loss
             equal to the same step on the CPU (plain version) and on the
-            card on each of ``backends`` (rtol ``sl.rtol``, default 1e-4).
+            card on each of ``backends`` (rtol ``sl.rtol``, default 1e-4);
+            the CPU's batch comes from ``sl.loaders[sl.cpu_mode]``
+            (default "pallas").
             ``sl.variants`` names the (fused, gather) variants, f32 by
             default.  Records the dtypes of the model's parameters and
             norm statistics after the run in ``sl.dtypes``.  Returns (rows,
@@ -1971,7 +2677,7 @@ def main():
                   f"D={sl.D} (per train step L fused forward + L gather "
                   f"backward, per eval step L fused forward)")
             refs = {"CPU": first_step_loss(sl, first_batch(
-                sl.loaders["pallas"]), "cpu")}
+                sl.loaders[getattr(sl, "cpu_mode", "pallas")]), "cpu")}
             for name in backends:
                 refs[f"--backend {name} on the card"] = first_step_loss(
                     sl, first_batch(sl.loaders[name]), dev)
@@ -2277,7 +2983,8 @@ def main():
                         rmodel, ropt, host_batch.to(dev)))):
                 rms = host_step_ms(torch, step)
                 log(f"[time] {mode} {how} train step {rms:.2f} ms")
-                profile_step(torch, step, rms, f"{mode} {how}")
+                step_profiles[f"{mode} {how}"] = profile_step(
+                    torch, step, rms, f"{mode} {how}")
 
         mark("resident")
         # ---- 4. the CSL slice: train_csl at the reference width ----
@@ -2307,14 +3014,17 @@ def main():
                      for n, p in model.named_parameters()}, v)
 
         def gradient_gate(label, name, cfg, loader, hp, loss, expect,
-                          node_level=False):
+                          node_level=False, gated=True):
             """One step of ``cfg``'s model, initialized from SEED, on the
             card against the same step on the CPU, on ``loader.example()``:
             the loss, every parameter gradient against the CPU step that
             takes the card's ReLU branches (the module docstring's gate),
             each ReLU input whose branch differs within 1e-4 of its call's
             largest |input| of 0, and the card's launches per variant
-            against ``expect``.  Returns the launches per (variant, D)."""
+            against ``expect``.  ``gated=False`` logs the same comparison
+            as a witness and holds only the launches.  Returns the
+            launches per (variant, D); the worst |err| / tol goes to
+            ``gradient_gate.worst``."""
             batch = loader.example()
 
             def fresh():
@@ -2338,31 +3048,37 @@ def main():
             rel = abs(loss_g - loss_c) / abs(loss_c)
             gscale = max(float(g.abs().max()) for g in grads.values()
                          if g is not None)
-            gated = grad_leaves(grads_g, grads, grads, grads_u, name)
+            gated_leaves = grad_leaves(grads_g, grads, grads, grads_u, name)
             own = grad_leaves(grads_g, grads_own, grads, grads_u, name)
-            over = [t for t in gated if t[1] > 1.0]
+            over = [t for t in gated_leaves if t[1] > 1.0]
             flips_line, flip_rel = flip_text(flips, card_relu)
             log(f"[{label}] {name}: loss GPU {loss_g:.7f} CPU {loss_c:.7f} "
                 f"(rel diff {rel:.2e}); {flips_line} on the card; "
-                f"{len(gated)} gradients against the CPU "
+                f"{len(gated_leaves)} gradients against the CPU "
                 f"step on the card's branches, largest {gscale:.2e}; worst "
-                f"by |err| / leaf max: {leaf_text(max(gated))}; worst by "
-                f"|err| / tol: {leaf_text(max(gated, key=lambda t: t[1]))}; "
+                f"by |err| / leaf max: {leaf_text(max(gated_leaves))}; worst "
+                f"by |err| / tol: "
+                f"{leaf_text(max(gated_leaves, key=lambda t: t[1]))}; "
                 f"against the CPU step on its own branches, "
                 f"{sum(t[1] > 1.0 for t in own)} outside the gate, worst "
                 f"{leaf_text(max(own, key=lambda t: t[1]))}; kernel launches "
                 f"{v_g} (expected {expect}), by width {dict(+w)}")
             if over:
                 log(f"[{label}] {name}: {len(over)} gradients outside the "
-                    "gate: " + "; ".join(leaf_text(t) for t in over))
-            check(not over, f"{name}: {len(over)} gradients outside the gate")
-            check(flip_rel <= 1e-4, f"{name}: a ReLU input {flip_rel:.2e} "
-                  f"of its call's largest from 0 took another branch on the "
-                  f"card")
+                    f"{'gate' if gated else 'bound (a witness, not gated)'}"
+                    ": " + "; ".join(leaf_text(t) for t in over))
             check(not v_c and not v_r,
                   f"{name}: a CPU step launched {v_c or v_r}")
-            check(rel <= 1e-4, f"{name}: loss differs by {rel:.2e} > 1e-4")
             check(v_g == expect, f"{name}: launches {v_g} != {expect}")
+            gradient_gate.worst = max(t[1] for t in gated_leaves)
+            if gated:
+                check(not over,
+                      f"{name}: {len(over)} gradients outside the gate")
+                check(flip_rel <= 1e-4, f"{name}: a ReLU input "
+                      f"{flip_rel:.2e} of its call's largest from 0 took "
+                      f"another branch on the card")
+                check(rel <= 1e-4,
+                      f"{name}: loss differs by {rel:.2e} > 1e-4")
             return +w
 
         fam_w = Counter()
@@ -2447,7 +3163,12 @@ def main():
             torch=torch, spmm=spmm, dev=dev, work=work, expr=expr,
             script_phase=script_phase, gradient_gate=gradient_gate,
             fused_v=fused_v, gather_v=gather_v, zinc=zinc, mcfg=mcfg,
-            args=args)
+            args=args, lk=lk, splits=splits, zinc_train=zinc_train,
+            zlosses=zlosses, blosses=blosses, bmcfg=bmcfg, ctrain=ctrain,
+            ctl=ctl, step_grads=step_grads, plan=plan, lplan=lplan, fb=fb,
+            step_profiles=step_profiles,
+            banded_tl=GraphLoader(zinc_train, BATCH, shuffle=True,
+                                  seed=SEED, **dict(lk, mode="banded")))
         exp_w, cexp_w = exp_phase(ctx)
         mark("exp")
         sr_w, sr_gate_w = sr25_phase(ctx)
@@ -2460,6 +3181,23 @@ def main():
         mark("ckpt")
         prof_w, large_w, _ = profile_phase(ctx)
         mark("profile")
+        # ---- 11. the banded backend and the device prep ----
+        banded_rows = banded_train_phase(ctx)
+        mark("banded")
+        _, gathered = banded_resident_phase(ctx, banded_rows)
+        mark("banded resident")
+        banded_bf16_phase(ctx)
+        mark("banded bf16")
+        banded_kpgcn_phase(ctx)
+        mark("banded KPGCN")
+        banded_spill_phase(ctx)
+        mark("banded spill")
+        banded_large_phase(ctx)
+        mark("banded large")
+        banded_tune_phase(ctx)
+        mark("banded tune")
+        device_prep_phase(ctx)
+        mark("device_prep")
         # ---- 9. times, on the flagship k=8 plan ----
         def sparse(c, dtype):
             n_e = c.senders.shape[0]
@@ -2541,8 +3279,9 @@ def main():
         log(f"[time] flagship train step {step_ms:.2f} ms, "
             f"{union_edges / step_ms / 1e3:.3f}M union edges/s "
             f"({union_edges} union edges, batch {BATCH})")
-        profile_step(torch, lambda: train_step(model, opt, batch), step_ms,
-                     "flagship")
+        step_profiles["pallas per-batch"] = profile_step(
+            torch, lambda: train_step(model, opt, batch), step_ms,
+            "flagship")
 
         mark("time flagship")
         # ---- the same times at the CSL shapes ----
@@ -2680,6 +3419,9 @@ def main():
         new_t["large"] = shape_times(lplan, LD, f"large k={large_cfg.K}",
                                      lplan.countsk_hm.shape[2])[2]
         mark("time expressiveness")
+        # ---- the banded aggregation beside the kernel path ----
+        banded_times(ctx, gathered)
+        mark("time banded")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -8,8 +8,10 @@ graph slot ``g_pad - 1`` are reserved for padding, and padded nodes belong
 to the masked last graph slot.  ``collate_dense`` gives graph b the node
 slots [b * n_slot, (b + 1) * n_slot) and a dense hop-attr tile
 (ops/adjacency.DenseAdj); there is no reserved graph slot, and padded
-nodes carry their own slot's graph id.  Masks mark real entries
-everywhere.  The TPU-only rounding of n_pad up to a kernel tile is gone.
+nodes carry their own slot's graph id.  ``collate_banded`` packs as
+``collate`` does, with n_pad rounded up to the banded plan's tile
+(ops/banded.py).  Masks mark real entries everywhere.  The kernel
+plan's TPU-only rounding of n_pad up to a tile is gone.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ import numpy as np
 import torch
 
 from ..ops.adjacency import COOAdj, DenseAdj
+from ..ops.banded import (BANDED_TILE, DEFAULT_HALO_CAP, HALO_ALIGN,
+                          build_banded)
 from ..ops.spmm import build_plan
 from .data import Graph
 
@@ -279,3 +283,74 @@ def collate_pallas(
     plan = build_plan(coo.receivers.numpy()[em], coo.senders.numpy()[em],
                       coo.edge_attr.numpy()[em], coo.n_nodes, v1, vk)
     return batch.replace(adj=plan)
+
+
+def collate_banded(
+    graphs: Sequence[Graph],
+    v1: int,
+    vk: int,
+    n_pad: Optional[int] = None,
+    e_pad: Optional[int] = None,
+    g_pad: Optional[int] = None,
+    spec: Optional[BucketSpec] = None,
+    y_is_node_level: bool = False,
+    tile: Optional[int] = None,
+    halo: Optional[int] = None,
+    spill_pad: Optional[int] = None,
+    gcn_norm: bool = False,
+) -> GraphBatch:
+    """COO collation whose adjacency is a banded window plan
+    (``--backend banded``, ops/banded.py), for large, locally ordered
+    graphs.  The halo auto-sizes to the batch's edge reach and edges
+    beyond it spill to a COO side list, so any graph runs.
+
+    Without ``tile``: 128 when the halo (``halo``, or the batch's edge
+    span rounded up to HALO_ALIGN and capped) is at most 128, else 256
+    (win = tile + 2·halo, so the smaller tile multiplies fewer window
+    rows).  n_pad is rounded up to the tile.  ``gcn_norm`` folds KPGCN's
+    sender scale (deg + 1)^-0.5 per hop, the self loop included, into
+    the plan.  Loaders pin ``halo`` and ``spill_pad`` to the dataset's
+    worst case so that every batch has one shape."""
+    if tile is None:
+        if halo is not None:
+            h_est = halo
+        else:
+            span = 0
+            for g in graphs:
+                if g.num_edges:
+                    span = max(span, int(np.abs(
+                        g.edge_index[0].astype(np.int64)
+                        - g.edge_index[1]).max()))
+            h_est = min(-(-span // HALO_ALIGN) * HALO_ALIGN,
+                        DEFAULT_HALO_CAP)
+        tile = 128 if h_est <= 128 else BANDED_TILE
+    if n_pad is not None:
+        n_pad = _round_up(n_pad, tile)
+    elif spec is not None:
+        spec = dataclasses.replace(spec, node_multiple=tile)
+    else:
+        spec = BucketSpec(node_multiple=tile, power_of_two=False)
+    batch = collate(graphs, n_pad=n_pad, e_pad=e_pad, g_pad=g_pad,
+                    spec=spec, y_is_node_level=y_is_node_level)
+    coo = batch.adj
+    em = coo.edge_mask.numpy()
+    recv = coo.receivers.numpy()[em]
+    send = coo.senders.numpy()[em]
+    attr = coo.edge_attr.numpy()[em]
+    sw = None
+    if gcn_norm:
+        sw = gcn_sender_weights(recv, attr, coo.n_nodes)
+    adj = build_banded(recv, send, attr, coo.n_nodes, v1, vk, tile=tile,
+                       halo=halo, spill_pad=spill_pad, sender_weights=sw)
+    return batch.replace(adj=adj)
+
+
+def gcn_sender_weights(receivers: np.ndarray, attr: np.ndarray,
+                       n_nodes: int) -> np.ndarray:
+    """(n_nodes, K) KPGCN's structural sender scale (deg + 1)^-0.5 per
+    hop, the self loop included (``degree(adj, add_self_loop=True)``)."""
+    K = attr.shape[1]
+    deg = np.ones((n_nodes, K), np.float32)
+    for k in range(K):
+        np.add.at(deg[:, k], receivers[attr[:, k] > 0], 1.0)
+    return 1.0 / np.sqrt(deg)

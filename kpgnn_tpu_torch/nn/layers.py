@@ -5,7 +5,7 @@ The four KP layers share one skeleton: split node state into K hops of
 width d_k, add the hop-k path encoding, run one k-hop aggregation over
 the batch's adjacency (``ops.adjacency.khop_aggregate_adj``), add the
 peripheral embedding, apply the per-hop transform and combine the hops.
-On a hop-major backend (the kernel plan) a layer runs its whole body in
+On a hop-major backend (the kernel plan, banded) a layer runs its whole body in
 the (K, N, d_k) layout; on COO it runs node-major (N, K, d_k), as the
 JAX layers do.  Per-hop weights are (K, d_in, d_out) tensors under the
 flax names (``hop_proj1``, ``hop_bias1``, ...), applied as one batched
@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.adjacency import degree, hop_major_native, khop_aggregate_adj
+from ..ops.banded import BandedAdj
 from .basic import MLP, TorchLinear
 from .combine import make_combine
 from .embed import small_table_lookup, zero_row
@@ -170,7 +171,8 @@ class KPGCNConv(_HopLayer):
     """KP-GNN with the GCN kernel: a linear map, then the multi-hop
     symmetric degree norm, receiver and sender scales deg^-1/2 (the
     plan backend pre-scales the gathered rows and rebuilds the
-    edge-embedding term from sender-weighted histograms), with the
+    edge-embedding term from sender-weighted histograms; a banded plan
+    must carry the sender scale folded in, ``gcn_norm``), with the
     self-loop (attr 1 on every hop) added as deg^-1 * (x + emb(1))."""
 
     def __init__(self, hidden_size: int, K: int, num_hop1_edge: int = 1,
@@ -185,9 +187,22 @@ class KPGCNConv(_HopLayer):
                                 hm)
         deg = degree(adj, add_self_loop=True)               # (N, K)
         dis = torch.rsqrt(deg)
-        agg = khop_aggregate_adj(adj, x, self.hop1_edge_emb,
-                                 self.hopk_edge_emb, scale=dis,
-                                 sender_scale=dis, hop_major=hm)
+        if isinstance(adj, BandedAdj):
+            # the structural sender scale deg^-0.5 is folded into the
+            # plan at collate time (collate_banded(gcn_norm=True)); only
+            # the receiver side stays dynamic
+            if not adj.sender_scaled:
+                raise ValueError(
+                    "KPGCN on the banded backend needs a gcn_norm plan: "
+                    "collate_banded(..., gcn_norm=True) (the loader sets "
+                    "this for KPGCN models)")
+            agg = khop_aggregate_adj(adj, x, self.hop1_edge_emb,
+                                     self.hopk_edge_emb, scale=dis,
+                                     hop_major=hm)
+        else:
+            agg = khop_aggregate_adj(adj, x, self.hop1_edge_emb,
+                                     self.hopk_edge_emb, scale=dis,
+                                     sender_scale=dis, hop_major=hm)
         tk = self.hopk_edge_emb
         self_emb = _self_loop_row(zero_row(self.hop1_edge_emb),
                                   zero_row(tk) if tk is not None else None,

@@ -1,7 +1,7 @@
 """Adjacency backends for the k-hop aggregation (counterpart of
 kpgnn_tpu/ops/adjacency.py).
 
-Three backends, one logical op:
+Four backends, one logical op:
 
 * ``COOAdj`` (``--backend coo``): the receiver-sorted, padded edge list
   of a collated batch; the aggregation is gather -> mask -> segment
@@ -15,6 +15,10 @@ Three backends, one logical op:
   is ``counts @ table`` over per-(node, hop) code histograms; add (both
   layouts), mean, max and the GCN scales (node-major).  As in the JAX
   package it is not hop-major native: only KPGINPlus calls it hop-major.
+* ``BandedAdj`` (``--backend banded``, ops/banded.py): tiled halo-window
+  masks for large, locally ordered graphs; the in-band sum is one
+  batched matmul, the out-of-band edges a COO spill list.  Natively
+  hop-major, add or mean, GCN's sender scale folded into the plan.
 
 out[i,k] = aggr_j live * s_i[k] * s_j[k] * (x[j,k] + emb_k(attr)).
 """
@@ -26,6 +30,7 @@ from typing import Optional
 import torch
 
 from ..nn.embed import small_table_lookup, zero_row
+from .banded import BandedAdj, banded_khop_aggregate
 from .segment import khop_aggregate, multi_hop_degree, segment_sum
 from .spmm import KHopPlan, khop_spmm
 
@@ -112,13 +117,14 @@ class DenseAdj:
 def _unported(adj) -> NotImplementedError:
     return NotImplementedError(
         f"aggregation over {type(adj).__name__} is not ported yet "
-        "(ROADMAP.md, Queue 1): collate in 'coo', 'pallas' or 'dense' mode")
+        "(ROADMAP.md, Queue 1): collate in 'coo', 'pallas', 'dense' or "
+        "'banded' mode")
 
 
 def hop_major_native(adj) -> bool:
     """True for backends whose aggregation is natively hop-major
     (K, N, D)."""
-    return isinstance(adj, KHopPlan)
+    return isinstance(adj, (KHopPlan, BandedAdj))
 
 
 def degree(adj, add_self_loop: bool = False) -> torch.Tensor:
@@ -126,7 +132,7 @@ def degree(adj, add_self_loop: bool = False) -> torch.Tensor:
     if isinstance(adj, COOAdj):
         return multi_hop_degree(adj.edge_attr, adj.receivers, adj.n_nodes,
                                 add_self_loop)
-    if isinstance(adj, KHopPlan):
+    if isinstance(adj, (KHopPlan, BandedAdj)):
         deg = adj.degree()
     elif isinstance(adj, DenseAdj):     # (B, K, n) live counts -> (B, n, K)
         deg = (adj.hop_attr > 0).sum(-1).transpose(1, 2).float()
@@ -141,7 +147,7 @@ def union_in_degree(adj) -> torch.Tensor:
     mask."""
     if isinstance(adj, COOAdj):
         return segment_sum(adj.edge_mask.float(), adj.receivers, adj.n_nodes)
-    if isinstance(adj, KHopPlan):
+    if isinstance(adj, (KHopPlan, BandedAdj)):
         return adj.union_deg
     if isinstance(adj, DenseAdj):
         return (adj.hop_attr > 0).any(1).sum(-1).float().reshape(-1)
@@ -160,12 +166,17 @@ def khop_aggregate_adj(
     hop_major: bool = False,
 ) -> torch.Tensor:
     """The k-hop aggregate in x's layout.  The plan backend runs either
-    layout natively, dense runs hop-major add natively; otherwise a
+    layout natively, banded hop-major natively (node-major pays one
+    transpose each way), dense runs hop-major add natively; otherwise a
     hop-major x is transposed at the boundary."""
     if isinstance(adj, KHopPlan):
         return khop_spmm(x, table1, tablek, adj, scale=scale,
                          sender_scale=sender_scale, aggr=aggr,
                          hop_major=hop_major)
+    if isinstance(adj, BandedAdj):
+        return banded_khop_aggregate(x, table1, tablek, adj, scale=scale,
+                                     sender_scale=sender_scale, aggr=aggr,
+                                     hop_major=hop_major)
     if not isinstance(adj, (COOAdj, DenseAdj)):
         raise _unported(adj)
     plain = scale is None and sender_scale is None and aggr == "add"

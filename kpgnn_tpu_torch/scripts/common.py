@@ -5,12 +5,14 @@ The argparse surface is the JAX package's, flag for flag, plus
 ``--device`` (default ``cuda``).  ``--backend`` takes ``coo`` (the
 flag's default, as in the JAX CLI: plain PyTorch ``index_add_``
 aggregation, as the JAX COO backend is plain XLA), ``pallas`` (the
-hand-written CUDA gather/segment-sum) or ``dense`` (per-graph hop tiles,
-batched matmuls on cuBLAS; ``--dense`` is its shorthand).  ``--bf16``
-runs the activations in bf16 (parameters, norm statistics and losses
-stay f32; the kernel takes its bf16 variants).  ``--resident``
-(auto|on|off) keeps dense and COO datasets on the device
-(``train.loop.resident_rule``).  ``prepare`` caches prep under
+hand-written CUDA gather/segment-sum), ``dense`` (per-graph hop tiles,
+batched matmuls on cuBLAS; ``--dense`` is its shorthand) or ``banded``
+(halo-window masks for large, locally ordered graphs, one batched
+matmul and a COO spill; KPGCN gets the plan with its sender scale folded
+in).  ``--bf16`` runs the activations in bf16 (parameters, norm
+statistics and losses stay f32; the kernel takes its bf16 variants).
+``--resident`` (auto|on|off) keeps dense, COO and banded datasets on the
+device (``train.loop.resident_rule``).  ``prepare`` caches prep under
 ``--cache_dir`` (default ``<dataset_dir>/cache``, or
 ``KPGNN_CACHE_DIR``), ``--reprocess`` rebuilds it and ``--num_workers``
 > 1 preps on a pool of processes.  ``--load_path`` warm-starts from a
@@ -18,7 +20,7 @@ checkpoint, ``--save_checkpoints`` keeps the best epochs' under
 ``<save_dir>/checkpoints`` and ``--profile_dir`` gets a torch.profiler
 trace of epoch 1 (train/loop.Trainer).  Options whose code paths are not
 ported yet raise ``NotImplementedError`` naming ROADMAP.md instead of
-being ignored: ``--backend banded`` and ``--parallel``.
+being ignored: ``--parallel``.
 ``--matmul_precision`` has nothing to select: the port runs f32 matmuls
 in full f32.
 """
@@ -123,9 +125,10 @@ def base_parser(description: str, **defaults) -> argparse.ArgumentParser:
                    choices=("coo", "dense", "pallas", "banded"),
                    help="adjacency backend: 'coo' (index_add_ segment "
                         "sums), 'pallas' (the fused-hop CUDA "
-                        "gather/segment-sum plan) or 'dense' (per-graph "
-                        "hop tiles, batched matmuls); 'banded' is not "
-                        "ported yet")
+                        "gather/segment-sum plan), 'dense' (per-graph "
+                        "hop tiles, batched matmuls) or 'banded' "
+                        "(halo-window masks, one batched matmul, a COO "
+                        "spill)")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 activations; parameters, norm statistics "
                         "and losses stay f32")
@@ -136,8 +139,8 @@ def base_parser(description: str, **defaults) -> argparse.ArgumentParser:
                         "matmuls in full f32")
     p.add_argument("--resident", type=str, default="auto",
                    choices=("auto", "on", "off"),
-                   help="device-resident epochs for dense and coo "
-                        "loaders: 'auto' when the store fits "
+                   help="device-resident epochs for dense, coo and "
+                        "banded loaders: 'auto' when the store fits "
                         "KPGNN_RESIDENT_MAX_BYTES (coo: and its slots are "
                         "at least half full)")
     p.add_argument("--parallel", nargs="?", const="data", default=None,
@@ -208,17 +211,12 @@ def backend(args) -> str:
 
 
 def check_ported(args) -> None:
-    """Raise for options whose code paths are not ported yet."""
-    unported = []
-    if backend(args) not in ("coo", "pallas", "dense"):
-        unported.append(f"--backend {backend(args)} (coo, pallas and dense "
-                        "are ported)")
+    """Raise for options whose code paths are not ported yet: only
+    ``--parallel``, under any mode and with any backend."""
     if args.parallel:
-        unported.append("--parallel")
-    if unported:
         raise NotImplementedError(
             "not ported to kpgnn_tpu_torch yet (ROADMAP.md, Queue 1): "
-            + ", ".join(unported))
+            f"--parallel {args.parallel}")
 
 
 def set_full_f32() -> None:
@@ -256,18 +254,24 @@ def prepare(raw_graphs, args, cache_name: str):
 
 
 def loader_kwargs(args, mcfg: ModelConfig) -> dict:
-    """Loader kwargs of the chosen backend; the kernel plan and the dense
-    tiles need the model's vocab sizes, and the plan refuses ``--aggr
-    max``, as in the JAX CLI."""
+    """Loader kwargs of the chosen backend; the kernel plan, the dense
+    tiles and the banded plan need the model's vocab sizes, KPGCN's
+    banded plan folds in its sender scale, and the kernel and banded
+    plans refuse ``--aggr max``, as in the JAX CLI."""
     mode = backend(args)
+    aggr = getattr(args, "aggr", "add")
+    if aggr == "max" and mode in ("pallas", "banded"):
+        raise SystemExit(
+            f"--aggr max is not available on the {mode} backend (its "
+            "plan stores attr histograms / one-hot sums, not the per-edge "
+            "codes max needs) — use --backend coo or dense")
     if mode == "coo":
         return {"mode": "coo"}
-    if args.aggr == "max" and mode == "pallas":
-        raise SystemExit("--aggr max is not available on the pallas "
-                         "backend (the kernel is sum-only) — use "
-                         "--backend coo or dense")
-    return {"mode": mode, "v1": mcfg.num_hop1_edge + 2,
-            "vk": mcfg.max_pe_num + 2}
+    kw = {"mode": mode, "v1": mcfg.num_hop1_edge + 2,
+          "vk": mcfg.max_pe_num + 2}
+    if mode == "banded" and mcfg.model_name == "KPGCN":
+        kw["banded_gcn_norm"] = True
+    return kw
 
 
 def fit_runs(args, splits, mcfg: ModelConfig, loss: str, logger,

@@ -1,7 +1,7 @@
 """Profile the flagship training step on the card (counterpart of
 kpgnn_tpu/scripts/profile_step.py).
 
-Answers "where does the step time go" in four regimes:
+Answers "where does the step time go" in five regimes:
 
   * ``resident``    — the flagship KPGINPlus (K=8 L=8 H=104) dense
     resident epoch: its steady-state time, then a torch.profiler trace of
@@ -11,10 +11,12 @@ Answers "where does the step time go" in four regimes:
     trace of 10 steps;
   * ``large``       — KPGIN K=3 H=102 L=3 on two 8,192-node polymers
     (``synthetic_polymers``) through the kernel plan (``collate_pallas``,
-    whose host seconds it prints): the step time and a trace of 5 steps.
+    whose host seconds it prints): the step time and a trace of 5 steps;
+  * ``banded``      — the same model on the same graphs through the
+    banded plan (``collate_banded``; its tile, halo and spill printed),
+    the step in f32 and in bf16, each with a trace of 5 steps.
 
-``banded`` raises ``NotImplementedError``: the banded backend is not
-ported yet (ROADMAP.md).  Each stage prints its time and
+Each stage prints its time and
 ``utils.trace_summary.report`` of its trace (under ``--out_dir``).  A
 stage that fails is reported with its traceback and the other stages
 still run; the process then exits with status 1.  ``--device`` defaults
@@ -34,7 +36,7 @@ from typing import Callable, Dict
 import torch
 
 from ..data.synthetic import synthetic_molecules, synthetic_polymers
-from ..graph.batch import collate_dense, collate_pallas
+from ..graph.batch import collate_banded, collate_dense, collate_pallas
 from ..models.factory import ModelConfig, make_model
 from ..nn.inits import init_parameters
 from ..prep.khop import KHopConfig
@@ -164,21 +166,26 @@ def stage_bf16(out_dir, device):
     return out
 
 
-def large_batch():
-    """(model config, collated batch, collate seconds) of the large
-    stage: KPGIN K=3 H=102 L=3 on LARGE_GRAPHS polymers of LARGE_NODES
-    nodes, collated for the kernel plan on the host."""
-    graphs = synthetic_polymers(LARGE_GRAPHS, LARGE_NODES, K=LARGE_K, seed=0)
-    mcfg = ModelConfig(
+def large_config(dtype: str = "float32") -> ModelConfig:
+    """KPGIN K=3 H=102 L=3, attention combine: the large stages' model."""
+    return ModelConfig(
         model_name="KPGIN", hidden_size=LARGE_HIDDEN, num_layer=LARGE_L,
         K=LARGE_K, num_hop1_edge=3, max_pe_num=30, max_edge_type=3,
         max_edge_count=20, max_hop_num=6, max_distance_count=30,
         JK="last", combine="attention", residual=True,
         input_encoder=("embedding", 21), task="graph_regression",
-        pooling_method="sum")
+        pooling_method="sum", compute_dtype=dtype)
+
+
+def large_batch(collate_fn: Callable = collate_pallas):
+    """(model config, collated batch, collate seconds) of the large
+    stages: LARGE_GRAPHS polymers of LARGE_NODES nodes, collated on the
+    host by ``collate_fn`` (the kernel plan, or ``collate_banded``)."""
+    graphs = synthetic_polymers(LARGE_GRAPHS, LARGE_NODES, K=LARGE_K, seed=0)
+    mcfg = large_config()
     t0 = time.perf_counter()
-    b = collate_pallas(graphs, v1=mcfg.num_hop1_edge + 2,
-                       vk=mcfg.max_pe_num + 2)
+    b = collate_fn(graphs, v1=mcfg.num_hop1_edge + 2,
+                   vk=mcfg.max_pe_num + 2)
     return mcfg, b, time.perf_counter() - t0
 
 
@@ -202,9 +209,27 @@ def stage_large(out_dir, device):
 
 
 def stage_banded(out_dir, device):
-    raise NotImplementedError(
-        "the banded backend is not ported to kpgnn_tpu_torch yet "
-        "(ROADMAP.md, Queue 1)")
+    """The large stage's model and graphs on the banded plan, f32 and
+    bf16."""
+    _, b, collate_s = large_batch(collate_banded)
+    adj = b.adj
+    spill = 0 if adj.spill_senders is None else adj.spill_senders.shape[0]
+    print(f"banded plan: tile={adj.tile}, halo={adj.halo}, spill={spill}; "
+          f"n_pad {b.n_pad}, collate_banded (host) {collate_s:.3f} s",
+          flush=True)
+    b = b.to(device)
+    out = {"collate_s": collate_s}
+    for dtype in ("float32", "bfloat16"):
+        model, opt = _model(large_config(dtype), device)
+
+        def step():
+            train_step(model, opt, b)
+        step()
+        out[dtype] = _best(step, LARGE_ITERS, device)
+        print(f"banded {dtype} step: {out[dtype] * 1e3:.3f} ms", flush=True)
+        _traced(out_dir, f"banded_{dtype} large step (n={LARGE_NODES} "
+                f"x{LARGE_GRAPHS}, K={LARGE_K}) x5", step, device, calls=5)
+    return out
 
 
 STAGES: Dict[str, Callable] = {

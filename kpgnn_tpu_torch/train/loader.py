@@ -1,6 +1,6 @@
 """Batch iterator: Graph list -> stream of padded GraphBatches
-(counterpart of kpgnn_tpu/train/loader.py, modes "coo", "pallas" and
-"dense"; the banded mode is not ported yet).
+(counterpart of kpgnn_tpu/train/loader.py, modes "coo", "pallas",
+"dense" and "banded").
 
 Pad sizes are chosen once per loader (worst case over the dataset; in
 dense mode the node slot of the largest graph), as in the JAX loader, so
@@ -18,9 +18,10 @@ from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
-from ..graph.batch import (BucketSpec, GraphBatch, collate, collate_dense,
-                           collate_pallas)
+from ..graph.batch import (BucketSpec, GraphBatch, collate, collate_banded,
+                           collate_dense, collate_pallas)
 from ..graph.data import Graph
+from ..ops.banded import BANDED_TILE, DEFAULT_HALO_CAP, HALO_ALIGN
 
 
 def background_iter(factory, maxsize: int = 2):
@@ -72,8 +73,12 @@ class GraphLoader:
     """mode="coo": batches carry the receiver-sorted edge list;
     mode="pallas": the fused-hop kernel plan; mode="dense": per-graph
     hop-attr tiles of ``n_slot`` nodes (default: the largest graph,
-    rounded up to 8) and ``batch_size`` graph slots.  Pallas and dense
-    need v1/vk equal to the model's num_hop1_edge + 2 / max_pe_num + 2."""
+    rounded up to 8) and ``batch_size`` graph slots; mode="banded": the
+    halo-window plan (``banded_gcn_norm`` folds KPGCN's sender scale into
+    it), its halo and spill length pinned to the dataset's worst case
+    (``banded_halo``, ``banded_spill_pad``) so that every batch has one
+    shape.  Pallas, dense and banded need v1/vk equal to the model's
+    num_hop1_edge + 2 / max_pe_num + 2."""
 
     def __init__(
         self,
@@ -89,11 +94,12 @@ class GraphLoader:
         v1: Optional[int] = None,
         vk: Optional[int] = None,
         n_slot: Optional[int] = None,
+        banded_gcn_norm: bool = False,
     ):
-        if mode not in ("coo", "pallas", "dense"):
+        if mode not in ("coo", "pallas", "dense", "banded"):
             raise NotImplementedError(
                 f"loader mode {mode!r} is not ported yet (ROADMAP.md, "
-                "Queue 1); use mode='coo', 'pallas' or 'dense'")
+                "Queue 1); use mode='coo', 'pallas', 'dense' or 'banded'")
         if mode != "coo" and (v1 is None or vk is None):
             raise ValueError(f"{mode} mode needs v1/vk vocab sizes")
         self.graphs = list(graphs)
@@ -103,7 +109,10 @@ class GraphLoader:
         self.y_is_node_level = y_is_node_level
         self.mode = mode
         self.v1, self.vk = v1, vk
+        self.banded_gcn_norm = banded_gcn_norm
         spec = spec or BucketSpec()
+        if mode == "banded":
+            self._pin_banded_shapes()
         if mode == "dense":
             max_n = max(g.num_nodes for g in self.graphs)
             self.n_slot = (n_slot if n_slot is not None
@@ -124,6 +133,24 @@ class GraphLoader:
         self.n_pad, self.e_pad = n_pad, e_pad
         self.g_pad = batch_size + 1
 
+    def _pin_banded_shapes(self) -> None:
+        """The dataset's worst-case halo (its largest edge span, capped)
+        and spill length (the batch_size graphs with the most live hop
+        entries beyond that halo), as the JAX loader pins them."""
+        cap = min(DEFAULT_HALO_CAP, BANDED_TILE)
+        spans_max, spills = [], []
+        for g in self.graphs:
+            span = np.abs(g.edge_index[0].astype(np.int64)
+                          - g.edge_index[1]).astype(np.int64)
+            spans_max.append(int(span.max()) if len(span) else 0)
+            spills.append((span, np.asarray(g.edge_attr) > 0))
+        need = min(max(spans_max, default=0), cap)
+        self.banded_halo = -(-need // HALO_ALIGN) * HALO_ALIGN
+        # an edge with span <= halo never spills (reach <= span)
+        per_g = sorted((int(live[span > self.banded_halo].sum())
+                        for span, live in spills), reverse=True)
+        self.banded_spill_pad = sum(per_g[:self.batch_size]) or None
+
     def example(self) -> GraphBatch:
         return self._collate(self.graphs[: self.batch_size])
 
@@ -139,6 +166,13 @@ class GraphLoader:
             return collate(batch_graphs, n_pad=self.n_pad, e_pad=self.e_pad,
                            g_pad=self.g_pad,
                            y_is_node_level=self.y_is_node_level)
+        if self.mode == "banded":
+            return collate_banded(
+                batch_graphs, v1=self.v1, vk=self.vk, n_pad=self.n_pad,
+                e_pad=self.e_pad, g_pad=self.g_pad,
+                y_is_node_level=self.y_is_node_level, halo=self.banded_halo,
+                spill_pad=self.banded_spill_pad,
+                gcn_norm=self.banded_gcn_norm)
         return collate_pallas(
             batch_graphs, v1=self.v1, vk=self.vk, n_pad=self.n_pad,
             e_pad=self.e_pad, g_pad=self.g_pad,

@@ -183,16 +183,20 @@ RESIDENT_MAX_BYTES = 4 << 30        # KPGNN_RESIDENT_MAX_BYTES's default
 
 def resident_rule(resident: str, loader) -> Tuple[bool, str]:
     """Whether ``loader``'s epochs run resident, and why (the JAX
-    Trainer's rule, kpgnn_tpu/train/loop.py:336-365).  Only dense and
-    COO loaders have a store.  "on" takes it, "off" never does; "auto"
-    takes a dense store that fits ``KPGNN_RESIDENT_MAX_BYTES`` (default
-    4 GiB), and a COO store only when it fits and both its node and its
-    edge slots are at least half full on average (per-graph slots of a
-    skewed dataset waste the compute COO's compact packing saves)."""
-    from .resident import coo_store_nbytes, store_nbytes
+    Trainer's rule, kpgnn_tpu/train/loop.py:336-365).  Dense, COO and
+    banded loaders have a store.  "on" takes it, "off" never does; "auto"
+    takes a dense or banded store that fits ``KPGNN_RESIDENT_MAX_BYTES``
+    (default 4 GiB), and a COO store only when it fits and both its node
+    and its edge slots are at least half full on average (per-graph slots
+    of a skewed dataset waste the compute COO's compact packing saves).
+    The banded store is sized at the dtype it keeps its mask in
+    (``banded_store_nbytes``), so a KPGCN store counts 4 bytes an entry
+    where the JAX estimate counts 1."""
+    from .resident import (banded_store_nbytes, coo_store_nbytes,
+                           plan_banded_store_shapes, store_nbytes)
 
     mode = getattr(loader, "mode", None)
-    if resident == "off" or mode not in ("dense", "coo"):
+    if resident == "off" or mode not in ("dense", "coo", "banded"):
         return False, f"--resident {resident}, loader mode {mode}"
     if resident == "on":
         return True, "--resident on"
@@ -202,6 +206,13 @@ def resident_rule(resident: str, loader) -> Tuple[bool, str]:
     if mode == "dense":
         nbytes = store_nbytes(gs, loader.n_slot, node_y)
         return nbytes <= cap, f"auto: dense store {nbytes} B, cap {cap:.0f}"
+    if mode == "banded":
+        tile, halo, n_slot, spill = plan_banded_store_shapes(gs)
+        nbytes = banded_store_nbytes(gs, n_slot, tile, halo, spill,
+                                     loader.v1, loader.vk, node_y,
+                                     loader.banded_gcn_norm)
+        return nbytes <= cap, (f"auto: banded store {nbytes} B, cap "
+                               f"{cap:.0f}")
     ns = max(g.num_nodes for g in gs)
     es = max(g.num_edges for g in gs)
     nbytes = coo_store_nbytes(gs, ns, es, node_y)
@@ -226,8 +237,8 @@ class Trainer:
     batch-statistics norms and leaves the running statistics as they were
     (``eval_step``'s ``bn_train_mode``; SR25).  ``node_level`` takes the
     loss and metrics over the real nodes (node heads).  ``resident``
-    ("auto", "on" or "off", ``resident_rule``) keeps a dense or COO
-    dataset on the device and gathers each batch there
+    ("auto", "on" or "off", ``resident_rule``) keeps a dense, COO or
+    banded dataset on the device and gathers each batch there
     (train/resident.py), in the loader's shuffle order.
 
     Checkpoints (train/checkpoint.py): ``cfg.load_path`` warm-starts the
@@ -287,29 +298,43 @@ class Trainer:
         use_resident, why = resident_rule(self.resident, train_loader)
         stores: Dict[int, object] = {}
         if use_resident:
-            from .resident import (build_coo_store, build_dense_store,
-                                   epoch_index_chunks, make_resident_eval,
-                                   make_resident_train_epoch)
-            coo = train_loader.mode == "coo"
-            if coo:         # one slot size over every split's COO store
-                slot_graphs = [g for l in (train_loader, val_loader,
-                                           test_loader)
-                               if l is not None
-                               and getattr(l, "mode", None) == "coo"
-                               for g in l.graphs]
+            from .resident import (build_banded_store, build_coo_store,
+                                   build_dense_store, epoch_index_chunks,
+                                   make_resident_eval,
+                                   make_resident_train_epoch,
+                                   plan_banded_store_shapes)
+            mode = train_loader.mode
+            # COO and banded stores: one slot layout over every split's
+            # store of that mode
+            slot_graphs = [g for l in (train_loader, val_loader,
+                                       test_loader)
+                           if l is not None
+                           and getattr(l, "mode", None) == mode
+                           for g in l.graphs]
+            if mode == "coo":
                 n_slot = max(g.num_nodes for g in slot_graphs)
                 e_slot = max(g.num_edges for g in slot_graphs)
+            elif mode == "banded":
+                banded_shapes = plan_banded_store_shapes(slot_graphs)
 
             def store_for(loader):
-                if id(loader) not in stores:
-                    stores[id(loader)] = (
-                        build_coo_store(loader.graphs, n_slot, e_slot,
-                                        loader.y_is_node_level, device)
-                        if coo else
-                        build_dense_store(loader.graphs, loader.n_slot,
-                                          loader.v1, loader.vk,
-                                          loader.y_is_node_level, device))
-                return stores[id(loader)]
+                if id(loader) in stores:
+                    return stores[id(loader)]
+                if mode == "coo":
+                    store = build_coo_store(loader.graphs, n_slot, e_slot,
+                                            loader.y_is_node_level, device)
+                elif mode == "banded":
+                    store = build_banded_store(
+                        loader.graphs, loader.v1, loader.vk,
+                        loader.y_is_node_level,
+                        gcn_norm=loader.banded_gcn_norm,
+                        shapes=banded_shapes, device=device)
+                else:
+                    store = build_dense_store(
+                        loader.graphs, loader.n_slot, loader.v1, loader.vk,
+                        loader.y_is_node_level, device)
+                stores[id(loader)] = store
+                return store
             train_store = store_for(train_loader)
             resident_epoch = make_resident_train_epoch(
                 model, opt, self.loss, self.node_level)
@@ -320,7 +345,8 @@ class Trainer:
                      f"on {device}, {train_store.nbytes()} B, "
                      f"{train_loader.mode} slots of {train_store.n_slot} "
                      f"nodes, one gathered batch a step ({why})")
-        elif getattr(train_loader, "mode", None) in ("dense", "coo"):
+        elif getattr(train_loader, "mode", None) in ("dense", "coo",
+                                                     "banded"):
             self.log(f"per-batch epochs ({why})")
 
         def run_eval(loader):

@@ -1,5 +1,5 @@
 """Device-resident datasets and resident epochs (counterpart of
-kpgnn_tpu/train/resident.py, the dense and COO stores).
+kpgnn_tpu/train/resident.py, the dense, COO and banded stores).
 
 The whole prepped dataset goes to the device once, as per-graph padded
 tensors with a leading graph axis.  An epoch then sends one (steps, B)
@@ -13,8 +13,7 @@ the epoch as one ``lax.scan``; here the steps are eager, and their
 static shapes (every batch of a store has the same tensors) are what a
 CUDA graph of the step would need.
 
-``BandedStore`` and the multi-device variants are not ported yet
-(ROADMAP.md, Queue 1).
+The multi-device variants are not ported yet (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -24,9 +23,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..graph.batch import GraphBatch
+from ..graph.batch import GraphBatch, gcn_sender_weights
 from ..graph.data import Graph
 from ..ops.adjacency import COOAdj, DenseAdj
+from ..ops.banded import (BANDED_TILE, DEFAULT_HALO_CAP, HALO_ALIGN,
+                          BandedAdj, build_banded)
 from .loop import evaluate, train_epoch
 
 NODE_FIELDS = ("x", "pe_attr", "peripheral_edge_attr",
@@ -309,10 +310,204 @@ def gather_coo_batch(store: COOStore, idx: torch.Tensor) -> GraphBatch:
     return _batch(store, idx, adj)
 
 
+@dataclasses.dataclass
+class BandedStore:
+    """Per-graph banded plans, leading dim Gs = num_graphs + 1: the
+    resident store of the large-graph regime.
+
+    Every graph's plan shares (tile, halo, spill_pad, n_slot), so a batch
+    assembles on the device by stacking: window masks concatenate along
+    the tile axis, node fields along the node axis, and the spill lists
+    remap from per-graph hop-major rows (k·n + r) to batch hop-major rows
+    (k·B·n + b·n + r).  Pad spill entries carry the per-graph sentinel
+    row K·n, which remaps to >= K·B·n and keeps dropping.  The last slot
+    is the empty pad graph."""
+
+    live: torch.Tensor                    # (Gs, K, T, tile, win) int8 | f32
+    counts1: torch.Tensor                 # (Gs, n, V1) f32
+    countsk: Optional[torch.Tensor]       # (Gs, n, K-1, Vk) | None
+    union_deg: torch.Tensor               # (Gs, n)
+    hop_deg: torch.Tensor                 # (Gs, n, K)
+    spill_rows: Optional[torch.Tensor]    # (Gs, S) int32, k*n + r
+    spill_senders: Optional[torch.Tensor]  # (Gs, S) int32, k*n + s
+    spill_weights: Optional[torch.Tensor]  # (Gs, S) f32 | None
+    x: Optional[torch.Tensor]
+    node_mask: torch.Tensor
+    graph_valid: torch.Tensor
+    pe_attr: Optional[torch.Tensor]
+    peripheral_edge_attr: Optional[torch.Tensor]
+    peripheral_config_attr: Optional[torch.Tensor]
+    rd: Optional[torch.Tensor]
+    z: Optional[torch.Tensor]
+    pos: Optional[torch.Tensor]
+    y: Optional[torch.Tensor]
+    tile: int
+    halo: int
+    sender_scaled: bool
+    y_is_node_level: bool = False
+
+    @property
+    def num_graphs(self) -> int:
+        return self.live.shape[0] - 1
+
+    @property
+    def n_slot(self) -> int:
+        return self.node_mask.shape[-1]
+
+    @property
+    def n_hops(self) -> int:
+        return self.live.shape[1]
+
+    def nbytes(self) -> int:
+        return _nbytes(self)
+
+
+def banded_store_nbytes(graphs: Sequence[Graph], n_slot: int, tile: int,
+                        halo: int, spill_pad: int, v1: int, vk: int,
+                        y_is_node_level: bool = False,
+                        gcn_norm: bool = False) -> int:
+    """A BandedStore's device bytes, counted at the stored dtypes: the
+    mask at 1 byte an entry, or 4 under ``gcn_norm`` (the JAX estimate
+    counts 1 byte either way, and leaves out y and the masks)."""
+    K = graphs[0].K
+    per = (4 if gcn_norm else 1) * K * n_slot * (tile + 2 * halo)
+    per += 4 * n_slot * (v1 + (K - 1) * vk + 1 + K)   # counts + degrees
+    per += spill_pad * (8 + (4 if gcn_norm else 0))   # rows, senders, w
+    return (len(graphs) + 1) * (per + _field_bytes(graphs, n_slot,
+                                                   y_is_node_level))
+
+
+def plan_banded_store_shapes(graphs: Sequence[Graph]):
+    """Shared (tile, halo, n_slot, spill_pad) over a graph set, by the
+    auto rules of collate_banded and the loader: the halo sized to the
+    worst edge span (capped), tile 128 when the halo fits under it, slots
+    rounded up to the tile, and the largest exact per-graph spill at
+    that (tile, halo)."""
+    cap = min(DEFAULT_HALO_CAP, BANDED_TILE)
+    span = max((int(np.abs(g.edge_index[0].astype(np.int64)
+                           - g.edge_index[1]).max())
+                for g in graphs if g.num_edges), default=0)
+    halo = min(-(-span // HALO_ALIGN) * HALO_ALIGN, cap)
+    tile = 128 if halo <= 128 else BANDED_TILE
+    n_slot = -(-max(g.num_nodes for g in graphs) // tile) * tile
+    spill = 0
+    for g in graphs:
+        if not g.num_edges:
+            continue
+        r = np.asarray(g.edge_index[1], np.int64)
+        s = np.asarray(g.edge_index[0], np.int64)
+        t_of = r // tile
+        reach = np.maximum.reduce([t_of * tile - s,
+                                   s - ((t_of + 1) * tile - 1),
+                                   np.zeros_like(s)])
+        live = np.asarray(g.edge_attr).reshape(g.num_edges, g.K) > 0
+        spill = max(spill, int(live[reach > halo].sum()))
+    return tile, halo, n_slot, spill
+
+
+def build_banded_store(graphs: Sequence[Graph], v1: int, vk: int,
+                       y_is_node_level: bool = False,
+                       gcn_norm: bool = False,
+                       shapes: Optional[tuple] = None,
+                       device="cpu") -> BandedStore:
+    """The dataset's per-graph banded plans as one BandedStore on
+    ``device`` (one copy).  ``shapes`` pins (tile, halo, n_slot,
+    spill_pad), so that the train, val and test stores share them (the
+    Trainer plans them over every split)."""
+    Gs = len(graphs) + 1
+    K = graphs[0].K
+    tile, halo, n_slot, spill_pad = (shapes if shapes is not None
+                                     else plan_banded_store_shapes(graphs))
+    T = n_slot // tile
+    win = tile + 2 * halo
+    live = np.zeros((Gs, K, T, tile, win),
+                    np.float32 if gcn_norm else np.int8)
+    counts1 = np.zeros((Gs, n_slot, v1), np.float32)
+    countsk = (np.zeros((Gs, n_slot, K - 1, vk), np.float32)
+               if K > 1 else None)
+    union_deg = np.zeros((Gs, n_slot), np.float32)
+    hop_deg = np.zeros((Gs, n_slot, K), np.float32)
+    sp = spill_pad > 0
+    # the pad slot's spill entries keep the sentinel row K*n (dropped)
+    spill_rows = (np.full((Gs, spill_pad), K * n_slot, np.int32)
+                  if sp else None)
+    spill_senders = np.zeros((Gs, spill_pad), np.int32) if sp else None
+    spill_weights = (np.zeros((Gs, spill_pad), np.float32)
+                     if sp and gcn_norm else None)
+    node_mask, graph_valid, stack_nodes = _stack_node_fields(graphs, n_slot)
+    for i, g in enumerate(graphs):
+        if not g.num_edges:
+            continue
+        r = np.asarray(g.edge_index[1], np.int64)
+        s = np.asarray(g.edge_index[0], np.int64)
+        attr = np.asarray(g.edge_attr).reshape(g.num_edges, K)
+        sw = gcn_sender_weights(r, attr, n_slot) if gcn_norm else None
+        plan = build_banded(r, s, attr, n_slot, v1, vk, tile=tile,
+                            halo=halo, spill_pad=spill_pad or None,
+                            sender_weights=sw, as_numpy=True)
+        live[i] = plan.live
+        counts1[i] = plan.counts1
+        if countsk is not None:
+            countsk[i] = plan.countsk
+        union_deg[i] = plan.union_deg
+        hop_deg[i] = plan.hop_deg
+        if sp and plan.spill_rows is not None:
+            spill_rows[i] = plan.spill_rows
+            spill_senders[i] = plan.spill_senders
+            if spill_weights is not None:
+                spill_weights[i] = plan.spill_weights
+    t = _tensors(device, live=live, counts1=counts1, countsk=countsk,
+                 union_deg=union_deg, hop_deg=hop_deg,
+                 spill_rows=spill_rows, spill_senders=spill_senders,
+                 spill_weights=spill_weights, node_mask=node_mask,
+                 graph_valid=graph_valid,
+                 y=_stack_y(graphs, n_slot, y_is_node_level),
+                 **{f: stack_nodes(f) for f in NODE_FIELDS})
+    return BandedStore(**t, tile=tile, halo=halo, sender_scaled=gcn_norm,
+                       y_is_node_level=y_is_node_level)
+
+
+def gather_banded_batch(store: BandedStore, idx: torch.Tensor
+                        ) -> GraphBatch:
+    """On-device banded batch assembly: graph b owns node slots
+    [b * n_slot, (b + 1) * n_slot) (collate_banded packs nodes
+    contiguously instead; every downstream op is mask-aware, so the
+    layouts give the same losses).  Window masks stack along the tile
+    axis; spill rows remap k·n + r -> k·(B·n) + b·n + r, which
+    interleaves graphs in the hop-major row space, so the plan clears
+    spill_sorted."""
+    B, n, K = idx.shape[0], store.n_slot, store.n_hops
+    T, tile, win = store.live.shape[2:]
+    live = store.live[idx].transpose(0, 1).reshape(K, B * T, tile, win)
+    sp_r = sp_s = sp_w = None
+    if store.spill_rows is not None:
+        offs = (torch.arange(B, device=idx.device, dtype=torch.int32)
+                * n)[:, None]
+
+        def remap(a):
+            return ((a // n) * (B * n) + offs + a % n).reshape(-1)
+        sp_r = remap(store.spill_rows[idx])
+        sp_s = remap(store.spill_senders[idx])
+        if store.spill_weights is not None:
+            sp_w = store.spill_weights[idx].reshape(-1)
+    adj = BandedAdj(
+        live=live, counts1=store.counts1[idx].reshape(B * n, -1),
+        countsk=(store.countsk[idx].reshape(B * n, K - 1, -1)
+                 if store.countsk is not None else None),
+        union_deg=store.union_deg[idx].reshape(-1),
+        hop_deg=store.hop_deg[idx].reshape(B * n, K),
+        spill_senders=sp_s, spill_rows=sp_r, spill_weights=sp_w,
+        spill_hop_ends=(), sender_scaled=store.sender_scaled,
+        spill_sorted=False, tile=tile, halo=store.halo, n_hops=K)
+    return _batch(store, idx, adj)
+
+
 def gather_any(store, idx: torch.Tensor) -> GraphBatch:
     """Dispatch by store type."""
     if isinstance(store, COOStore):
         return gather_coo_batch(store, idx)
+    if isinstance(store, BandedStore):
+        return gather_banded_batch(store, idx)
     return gather_batch(store, idx)
 
 

@@ -236,7 +236,9 @@ def test_port_imports_without_matplotlib_or_networkx():
     ("train_exp", ["--folds", "2"]),
     ("train_sr", []),
     ("run_simulation", ["--n", "10", "--graphs", "1"]),
-    ("profile_step", ["--stages", "large"])])
+    ("profile_step", ["--stages", "large"]),
+    ("profile_step", ["--stages", "banded"]),
+    ("tune_banded", ["--n_nodes", "256"])])
 def test_expressiveness_scripts_without_cuda_raise(tmp_path, script, argv):
     """The default device is cuda: without CUDA each new script raises
     before it loads, generates or writes anything; --device cpu runs
@@ -246,13 +248,27 @@ def test_expressiveness_scripts_without_cuda_raise(tmp_path, script, argv):
         pytest.skip("a CUDA device is present: the default device works")
     import importlib
     mod = importlib.import_module(f"kpgnn_tpu_torch.scripts.{script}")
+    timing = script in ("profile_step", "tune_banded")
     if script == "profile_step":
         argv = argv + ["--out_dir", str(tmp_path / "s")]
-    else:
+    elif not timing:
         argv = argv + ["--save_dir", str(tmp_path / "s"), "--dataset_dir",
                        str(tmp_path)]
-    for backend in (("pallas", "coo") if script != "profile_step"
-                    else (None,)):
+    for backend in (("pallas", "coo") if not timing else (None,)):
         with pytest.raises(RuntimeError, match="--device cpu"):
             mod.main(argv + (["--backend", backend] if backend else []))
     assert not (tmp_path / "s").exists()
+
+
+def test_isolation_checks_cover_the_banded_and_data_modules():
+    """The banded backend, the timing helper, the tile sweep, the OGB
+    loader and the on-device prep are among the sources both isolation
+    checks read and import."""
+    sources = {os.path.relpath(p, REPO) for p in port_sources()}
+    for mod in ("ops/banded.py", "utils/timing.py", "scripts/tune_banded.py",
+                "data/ogb.py", "prep/device.py", "data/algorithms.py"):
+        assert os.path.join("kpgnn_tpu_torch", mod) in sources, mod
+    from kpgnn_tpu_torch.ops.banded import BandedAdj
+    from kpgnn_tpu_torch.prep.device import device_khop_dense
+    assert BandedAdj.__module__ == "kpgnn_tpu_torch.ops.banded"
+    assert device_khop_dense.__module__ == "kpgnn_tpu_torch.prep.device"

@@ -254,20 +254,46 @@ def test_train_zinc_main_on_the_coo_backend(tmp_path):
     assert np.isfinite(rows[0]["step_losses"]).all()
 
 
-@pytest.mark.parametrize("flag", [["--backend", "banded"],
+@pytest.mark.parametrize("flag", [["--parallel", "data"],
                                   ["--parallel", "node"],
-                                  ["--backend", "banded", "--bf16"],
+                                  ["--parallel", "node", "--backend",
+                                   "banded"],
                                   ["--parallel"]])
 def test_train_zinc_refuses_unported_options(tmp_path, flag):
-    """Only the banded backend and --parallel are refused (checkpoints and
-    --profile_dir are ported: tests/test_torch_train_utils.py,
-    tests/test_torch_observability.py)."""
+    """Only --parallel is refused, under any mode and with any backend
+    (the banded backend, checkpoints and --profile_dir are ported:
+    test_train_zinc_on_the_banded_backend below,
+    tests/test_torch_train_utils.py, tests/test_torch_observability.py)."""
     from kpgnn_tpu_torch.scripts import train_zinc
 
     base = ["--dataset_dir", str(tmp_path), "--save_dir",
             str(tmp_path / "s"), "--device", "cpu", "--backend", "pallas"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_zinc.main(base + flag + TINY_ARGS)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_train_zinc_on_the_banded_backend(tmp_path, bf16):
+    """train_zinc --backend banded [--bf16] on the CPU: finite losses, and
+    a first step equal to --backend coo's (rtol 1e-4; 1e-2 in bf16, which
+    rounds after each side's own summation order)."""
+    from kpgnn_tpu_torch.scripts import train_zinc
+
+    write_zinc_fixture(str(tmp_path), (24, 8, 8))
+    first = {}
+    for backend in ("banded", "coo"):
+        rows = []
+        mae = train_zinc.main(
+            ["--dataset_dir", str(tmp_path), "--save_dir",
+             str(tmp_path / backend), "--backend", backend, "--device",
+             "cpu"] + (["--bf16"] if bf16 else []) + TINY_ARGS,
+            epoch_callback=lambda e, m, row: rows.append(row))
+        assert math.isfinite(mae)
+        assert len(rows) == 1 and len(rows[0]["step_losses"]) == 3
+        assert np.isfinite(rows[0]["step_losses"]).all()
+        first[backend] = rows[0]["step_losses"][0]
+    np.testing.assert_allclose(first["banded"], first["coo"],
+                               rtol=1e-2 if bf16 else 1e-4)
 
 
 def test_init_parameters_depends_only_on_the_seed():

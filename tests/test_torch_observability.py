@@ -226,16 +226,24 @@ def test_profile_step_stages_at_toy_size(toy_profile_step, tmp_path,
 
 
 def test_profile_step_failing_stage_exits_nonzero(toy_profile_step,
-                                                  tmp_path, capsys):
-    """A failed stage is reported, the others still run, and the process
-    exits with status 1; ``banded`` names ROADMAP.md."""
+                                                  tmp_path, capsys,
+                                                  monkeypatch):
+    """A failed stage (here one that raises on purpose) is reported with
+    its traceback, the others (banded, large) still run, and the process
+    exits with status 1; an unknown stage is a usage error."""
+    def broken(out_dir, device):
+        raise RuntimeError("this stage fails on purpose")
+    monkeypatch.setitem(toy_profile_step.STAGES, "broken", broken)
     with pytest.raises(SystemExit) as e:
         toy_profile_step.main(["--device", "cpu", "--out_dir",
-                               str(tmp_path), "--stages", "banded,large"])
+                               str(tmp_path), "--stages",
+                               "broken,banded,large"])
     assert e.value.code == 1
     captured = capsys.readouterr()
-    assert "ROADMAP.md" in captured.err
-    assert "[stage banded FAILED" in captured.out
+    assert "this stage fails on purpose" in captured.err
+    assert "[stage broken FAILED" in captured.out
+    assert "[stage banded done" in captured.out
     assert "[stage large done" in captured.out
+    assert "stages failed: broken" in captured.out
     with pytest.raises(SystemExit):
         toy_profile_step.main(["--device", "cpu", "--stages", "nowhere"])

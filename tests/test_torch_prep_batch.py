@@ -168,9 +168,11 @@ def test_loader_shuffle_order_matches():
 
 
 def test_loader_refuses_unported_modes():
+    """Every mode of the JAX loader is ported; a mode it does not know
+    still raises, naming ROADMAP.md."""
     ts = tkhop.extract_graphs(raw_molecules(2), tkhop.KHopConfig(K=2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GraphLoader(ts, 2, mode="banded", v1=4, vk=4)
+        GraphLoader(ts, 2, mode="sharded", v1=4, vk=4)
 
 
 def test_coo_loader_layout_and_edges_match():
