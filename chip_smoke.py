@@ -178,6 +178,41 @@ Phases, each of which fails the run loudly:
      path and the bound, eager and from a CUDA graph, with the step's
      launches against pallas and coo, and prints a ``[banded]`` JSON
      line.
+ 12. multi-rank training — run after 11: P ranks spawned on the one
+     card over gloo (NCCL takes one rank a card; gloo stages every
+     collective through the host, so no time of these legs stands for
+     NCCL's), each computing on cuda:0 (``_parallel_rank``).  [dp] the
+     flagship at full width, P=2, 64 molecules a rank, three steps on the
+     trainer's first six batches: the first step's loss sum equal to the
+     sum of the one-device card steps on each rank's batch within
+     1e-6 * max(1, |sum|) (the JAX dryrun's bound), its all-reduced
+     gradients against the count-weighted sum of the one-device
+     gradients under the gradient gate (the one-device steps replay
+     each rank's ReLU branches, ``relu_branches``), L fused + L gather
+     launches a rank; then a data-parallel resident epoch over a dense
+     store of the train split (the first step held the same way, on its
+     mean loss); every rank's parameters bit for bit rank 0's after each
+     leg.  [node] the flagship's first 64 molecules at P=2 on the kernel
+     plan (n_pad tight, so both halves hold real nodes; GNNPlus slices
+     the rectangular plan to its hop windows), and profile_step's large
+     polymers (KPGIN K=3 L=3 H=102, two 8,192-node graphs, n_pad a
+     multiple of P*256) at P=2 and P=4 on the kernel plan and on banded:
+     the loss sum within 1e-5 * max(1, |loss|) of the unpartitioned
+     one-device card step, the gradients under the gate (the reference
+     replays the ranks' ReLU branches, concatenated along the node
+     axis), 2L launches a rank on the kernel plans (none on banded), and
+     the halo B, boundary_total, comm bytes a layer against the
+     full-table psum's and the step ms.  [dcn] four ranks as a 2 x 2
+     (dcn, data) mesh with ``host_shard_loader``: the first group's loss
+     sum within 1e-6 of the one-device sums.  [parallel scripts]
+     ``train_zinc --parallel data`` and ``--parallel node --backend
+     pallas`` for one epoch on a one-rank NCCL group in this process,
+     through ``script_phase``, first steps equal to the run without
+     --parallel (rtol 1e-4).  Phase 2 holds the kernel against its plain
+     version on each node leg's rank-0 rectangular plan (forward
+     K*n_local rows over K*n_ext sender rows, backward the transpose,
+     whose rows_per_hop is n_ext; gather and fused, and the flagship
+     shard's first hop window), and the time section times them.
 The last lines are the card's name and power limit, a ``kernels`` JSON
 line, and ``{"ok": true, "device": {...}}``.  The ``kernels`` line has one
 entry per kernel variant, timed on the flagship plan, with the launches
@@ -189,8 +224,12 @@ the k=3 plan, node property's D=128 and graph property's D=96 over
 their k=6 plans, TU's D=16 over the k=2 plan, EXP's D=16, SR25's D=12,
 the simulation's fused forward at D=32 and at each sweep width, and
 profile_step's large plan at D=34), each with the launches of the run
-that takes that shape, its error, times and bound; and the bf16
-variants on the flagship plan with the --bf16 run's launches.
+that takes that shape, its error, times and bound; the node legs'
+rectangular plans (the flagship shard at D=104, the polymer shards at
+P=2 and P=4 at D=34) with the launches of their kernel-plan legs summed
+over the ranks; and the bf16 variants on the flagship plan with the
+--bf16 run's launches.  The first entries' launches also count the
+multi-rank legs and the --parallel runs.
 
 Tolerances: f32 gather vs plain version atol 1e-5, except the hub row,
 whose 10k-term sums may differ in summation order by up to 1e-6 of the
@@ -2035,6 +2074,441 @@ def banded_times(ctx, gathered):
     return entries
 
 
+PAR_STEPS = 3                   # [dp] steps before the ranks' parameters
+PAR_TIMED = 3                   # steps timed after each leg's gated step
+PAR_TIMEOUT = 900               # seconds a spawned group may take
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _par_mesh(kind, dev):
+    from kpgnn_tpu_torch.parallel.mesh import make_mesh
+    from kpgnn_tpu_torch.parallel.multihost import dcn_mesh
+    if kind == "dcn":
+        return dcn_mesh(n_hosts=2, device=dev)
+    return make_mesh(("node",) if kind == "node" else ("data",), device=dev)
+
+
+def _parallel_rank(rank, world, jobs, device):
+    """One rank of the multi-rank legs ([dp], [node], [dcn]): every rank
+    computes on ``device`` (the one card) and the group is gloo (NCCL
+    takes one rank a card).  Per job: the model initialized from SEED, its first (gated)
+    step with its ReLU inputs recorded, the loss sum and count over the
+    group, the all-reduced gradients, the kernel launches of that step
+    (the counters set to 0 just before it), then the job's further steps
+    and PAR_TIMED timed ones; the parameters after the job's steps."""
+    import torch
+    from kpgnn_tpu_torch.models.factory import make_model
+    from kpgnn_tpu_torch.nn.inits import init_parameters
+    from kpgnn_tpu_torch.ops import spmm
+    from kpgnn_tpu_torch.parallel.dp import make_parallel_train_step
+    from kpgnn_tpu_torch.parallel.multihost import (host_shard_loader,
+                                                    lockstep_group_count)
+    from kpgnn_tpu_torch.parallel.partition import (make_sharded_train_step,
+                                                    partition_batch)
+    from kpgnn_tpu_torch.scripts import common
+    from kpgnn_tpu_torch.train.resident import (
+        build_dense_store, make_parallel_resident_train_epoch,
+        parallel_epoch_index_chunks)
+    from kpgnn_tpu_torch.train.state import make_optimizer
+
+    common.set_full_f32()
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    meshes, out = {}, {}
+    for job in jobs:
+        kind = job["kind"]
+        key = "node" if kind == "node" else ("dcn" if kind == "dcn"
+                                             else "data")
+        if key not in meshes:
+            meshes[key] = _par_mesh(kind, dev)
+        mesh = meshes[key]
+        model = init_parameters(make_model(job["cfg"]), SEED).to(dev)
+        opt = make_optimizer(model.parameters(), *job["hp"])
+        res = {}
+        relu = []
+        if kind == "node":
+            t0 = time.perf_counter()
+            shard = partition_batch(job["batch"], world, rank,
+                                    mesh.group("node"), False,
+                                    **job["plans"])
+            res["partition_s"] = time.perf_counter() - t0
+            a = shard.adj
+            res.update(halo=a.halo, boundary=a.boundary_total(),
+                       n_local=a.n_local, n_ext=a.n_ext,
+                       comm=a.comm_elems_per_layer(job["K"], job["D"]) * 4,
+                       psum=a.psum_elems_per_layer(job["K"], job["D"]) * 4)
+            step = make_sharded_train_step(mesh)
+            batches = [shard.to(dev)]
+        elif kind == "dcn":
+            n_groups = lockstep_group_count(job["n_graphs"], job["B"], mesh)
+            batches = [b.to(dev) for b in host_shard_loader(
+                job["hosts"][mesh.axis_index("dcn")], mesh, n_groups)]
+            step = make_parallel_train_step(mesh)
+        elif kind == "dp":
+            batches = [s[rank].to(dev) for s in job["steps"]]
+            step = make_parallel_train_step(mesh)
+        else:                               # dp resident, a dense store
+            store = build_dense_store(job["graphs"], job["n_slot"],
+                                      job["v1"], job["vk"], device=dev)
+            chunks = parallel_epoch_index_chunks(
+                job["order"], job["B"], world, store.num_graphs)
+            epoch = make_parallel_resident_train_epoch(
+                model, opt, mesh, job["loss"])
+            spmm.reset_launch_counts()
+            with relu_branches(torch, relu, replay=False):
+                first, _ = epoch(store, chunks[:1])
+            _sync(torch, dev)
+            res.update(loss=first, relu=relu, grads={
+                n: p.grad.cpu() for n, p in model.named_parameters()
+                if p.grad is not None},
+                launches=dict(spmm.gather_segment_sum.variant_launches),
+                steps=len(chunks))
+            epoch(store, chunks[1:])
+            res["params"] = {n: p.detach().cpu()
+                             for n, p in model.named_parameters()}
+            out[job["label"]] = res
+            continue
+        spmm.reset_launch_counts()
+        with relu_branches(torch, relu, replay=False):
+            lsum, cnt = step(model, opt, batches[0], job["loss"])
+        _sync(torch, dev)
+        res.update(loss_sum=float(lsum), count=float(cnt), relu=relu,
+                   grads={n: p.grad.cpu()
+                          for n, p in model.named_parameters()
+                          if p.grad is not None},
+                   launches=dict(spmm.gather_segment_sum.variant_launches),
+                   widths=dict(spmm.gather_segment_sum.width_launches))
+        for b in batches[1:]:
+            step(model, opt, b, job["loss"])
+        _sync(torch, dev)
+        res["params"] = {n: p.detach().cpu()
+                         for n, p in model.named_parameters()}
+        t0 = time.perf_counter()
+        for _ in range(PAR_TIMED):
+            step(model, opt, batches[-1], job["loss"])
+        _sync(torch, dev)
+        res["step_ms"] = (time.perf_counter() - t0) / PAR_TIMED * 1e3
+        out[job["label"]] = res
+    return out
+
+
+def _combine_relu(torch, per_rank, n_local):
+    """The node-sharded step's recorded ReLU inputs, rank by rank, as the
+    unpartitioned step's: a call with a node axis (an axis of n_local
+    rows) is the ranks' shards concatenated along it; a replicated
+    (per-graph) call is rank 0's."""
+    out = []
+    for calls in zip(*per_rank):
+        axes = [a for a, s in enumerate(calls[0].shape) if s == n_local]
+        out.append(torch.cat(calls, dim=axes[0]) if axes else calls[0])
+    return out
+
+
+def _single_step(torch, cfg, batch, hp, loss, dev, relu=None, moved=False):
+    """One optimizer step of ``cfg``'s model (from SEED) on ``batch`` on the
+    card: (loss sum, count, {parameter: grad of loss sum / count}, ReLU
+    flips), replaying ``relu``'s branches where given."""
+    from kpgnn_tpu_torch.models.factory import make_model
+    from kpgnn_tpu_torch.nn.inits import init_parameters
+    from kpgnn_tpu_torch.train.loop import train_step
+    from kpgnn_tpu_torch.train.state import make_optimizer
+
+    model = init_parameters(make_model(cfg), SEED)
+    model = (ulp_moved(torch, model) if moved else model).to(dev)
+    opt = make_optimizer(model.parameters(), *hp)
+    ctx = (relu_branches(torch, relu, replay=True) if relu is not None
+           else contextlib.nullcontext([]))
+    with ctx as flips:
+        lsum, cnt = train_step(model, opt, batch.to(dev), loss)
+    return (float(lsum), float(cnt),
+            {n: p.grad.cpu() for n, p in model.named_parameters()
+             if p.grad is not None}, flips)
+
+
+def _count_weighted(steps):
+    """The data-parallel gradient from one-device steps (``_single_step``
+    results, one per rank): each rank's gradient of its mean loss
+    weighted by its count over the total, i.e. the gradient of the summed
+    loss over the summed count."""
+    total = sum(x[1] for x in steps)
+    return {n: sum(x[2][n] * (x[1] / total) for x in steps)
+            for n in steps[0][2]}
+
+
+def _gate(label, name, got_loss, want_loss, tol, got, ref, moved, flips,
+          relu):
+    """The parity bound on the loss sum (tol · max(1, |want|), the
+    dryrun's), and the gradient gate (``grad_leaves``) on ``got`` against
+    the replayed reference ``ref``; logs both, fails past either."""
+    delta = abs(got_loss - want_loss)
+    bound = tol * max(1.0, abs(want_loss))
+    leaves = grad_leaves(got, ref, ref, moved, name)
+    over = [t for t in leaves if t[1] > 1.0]
+    flips_line, flip_rel = flip_text(flips, relu)
+    log(f"[{label}] {name}: loss sum {got_loss:.7f}, one device "
+        f"{want_loss:.7f}: |diff| {delta:.3e} (bound {bound:.1e}); "
+        f"{flips_line} in the one-device step; {len(leaves)} gradients "
+        f"under the gate, worst by |err| / tol: "
+        f"{leaf_text(max(leaves, key=lambda t: t[1]))}")
+    if over:
+        log(f"[{label}] {name}: {len(over)} gradients outside the gate: "
+            + "; ".join(leaf_text(t) for t in over))
+    check(delta <= bound and not over and flip_rel <= 1e-4,
+          f"{name}: loss |diff| {delta:.3e} > {bound:.1e}, or "
+          f"{len(over)} gradients outside the gate, or a flipped ReLU "
+          f"input {flip_rel:.2e} of its call's largest")
+
+
+def _same_params(results, label):
+    """Every rank's parameters bit for bit rank 0's."""
+    ref = results[0][label]["params"]
+    for r, res in enumerate(results[1:], 1):
+        bad = [n for n, p in res[label]["params"].items()
+               if not bool((p == ref[n]).all())]
+        check(not bad, f"{label}: rank {r}'s parameters differ from rank "
+              f"0's in {bad[:5]}")
+
+
+def parallel_data(torch, zinc_train, lk, mcfg, lcfg):
+    """The multi-rank legs' batches, on the host: the flagship loader's
+    first 64 molecules collated COO (the node leg partitions it) beside
+    the same graphs on the kernel plan (its unpartitioned reference), at
+    an n_pad that puts real nodes in both halves, and the
+    polymers collated COO and on the kernel plan at an n_pad that is a
+    multiple of P·256 (whole banded tiles in every shard) for P = 2 and
+    4; each node leg's rank-0 rectangular plan, for the kernel checks."""
+    from kpgnn_tpu_torch.graph.batch import (BucketSpec, collate,
+                                             collate_pallas)
+    from kpgnn_tpu_torch.parallel.partition import partition_batch
+
+    v = {"v1": lk["v1"], "vk": lk["vk"]}
+
+    def pads(graphs, multiple):
+        n = sum(g.num_nodes for g in graphs) + 1
+        _, e_pad = BucketSpec().pad_sizes(n - 1, sum(g.num_edges
+                                                     for g in graphs))
+        return dict(n_pad=-(-n // multiple) * multiple, e_pad=e_pad,
+                    g_pad=len(graphs) + 1)
+    # the loader's n_pad (4,096 for 1,375 nodes) would leave rank 1 only
+    # padding: the tightest n_pad whose halves hold real nodes instead
+    fg = zinc_train[:BATCH]
+    coo = collate(fg, **pads(fg, 128))
+    pal = collate_pallas(fg, **pads(fg, 128), **v)
+    polys = polymer_graphs()
+    lv = {"v1": lcfg.num_hop1_edge + 2, "vk": lcfg.max_pe_num + 2}
+    poly = {P: (collate(polys, **pads(polys, P * 256)),
+                collate_pallas(polys, **pads(polys, P * 256), **lv))
+            for P in (2, 4)}
+    shard_plans = {
+        "shard flagship P=2": (partition_batch(
+            coo, 2, 0, pallas=v).adj.plan, H),
+        "shard polymers P=2": (partition_batch(
+            poly[2][0], 2, 0, pallas=lv).adj.plan, lcfg.hidden_size
+            // lcfg.K),
+        "shard polymers P=4": (partition_batch(
+            poly[4][0], 4, 0, pallas=lv).adj.plan, lcfg.hidden_size
+            // lcfg.K)}
+    return SimpleNamespace(v=v, lv=lv, coo=coo, pal=pal, poly=poly,
+                           shard_plans=shard_plans)
+
+
+def parallel_phase(ctx):
+    """[dp], [node], [dcn]: the multi-rank legs, P gloo ranks spawned on
+    the one card (parallel/mesh.spawn), against one-device card steps on
+    the same weights and batches (module docstring, phase 12).  Returns
+    {leg label: rank-summed kernel launches by (variant, D)}."""
+    import numpy as np
+    from kpgnn_tpu_torch.graph.batch import _round_up
+    from kpgnn_tpu_torch.parallel.mesh import spawn
+    from kpgnn_tpu_torch.parallel.multihost import host_shard
+    from kpgnn_tpu_torch.train.loader import GraphLoader
+    from kpgnn_tpu_torch.train.resident import (build_dense_store,
+                                                gather_any,
+                                                parallel_epoch_index_chunks)
+
+    torch, dev, par = ctx.torch, ctx.dev, ctx.par
+    hp = (ctx.args.lr, ctx.args.l2_wd)
+    lhp = (1e-3, 0.0)
+    L = ctx.mcfg.num_layer
+    LL = ctx.lcfg.num_layer
+    LD = ctx.lcfg.hidden_size // ctx.lcfg.K
+    flag = dict(cfg=ctx.mcfg, hp=hp, loss="l1")
+    large = dict(cfg=ctx.lcfg, hp=lhp, loss="l1", K=ctx.lcfg.K, D=LD)
+    fb = first_batches(ctx.tl, 2 * PAR_STEPS)
+    n_slot = _round_up(max(g.num_nodes for g in ctx.zinc_train), 8)
+    order = np.random.default_rng(SEED).permutation(len(ctx.zinc_train))
+    dcn_graphs = ctx.zinc_train[:4 * BATCH]
+    hosts = [list(GraphLoader(host_shard(dcn_graphs, h, 2), BATCH,
+                              **ctx.lk)) for h in range(2)]
+    legs = {2: [dict(flag, kind="dp", label="dp flagship P=2",
+                     steps=[fb[2 * s:2 * s + 2] for s in range(PAR_STEPS)]),
+                dict(flag, kind="dp resident", label="dp resident P=2",
+                     graphs=ctx.zinc_train, n_slot=n_slot, v1=par.v["v1"],
+                     vk=par.v["vk"], order=order, B=BATCH),
+                dict(flag, kind="node", label="node flagship P=2",
+                     batch=par.coo, plans={"pallas": par.v}, K=K, D=H)],
+            4: [dict(flag, kind="dcn", label="dcn 2x2", hosts=hosts,
+                     n_graphs=len(dcn_graphs), B=BATCH)]}
+    for P in (2, 4):
+        for b in ("pallas", "banded"):
+            legs[P].append(dict(
+                large, kind="node", plans={b: par.lv}, batch=par.poly[P][0],
+                label=f"node polymers P={P} "
+                      f"{'kernel plan' if b == 'pallas' else 'banded'}"))
+    launches = {}
+    for P, jobs in legs.items():
+        t0 = time.perf_counter()
+        results = spawn(_parallel_rank, P, "gloo", args=(jobs, str(dev)),
+                        devices=[dev] * P, timeout=PAR_TIMEOUT)
+        log(f"[parallel] {P} gloo ranks on one card ({card_line()}): "
+            f"{len(jobs)} legs in {time.perf_counter() - t0:.1f} s, spawn "
+            "included")
+        for job in jobs:
+            label = job["label"]
+            _same_params(results, label)
+            res = [r[label] for r in results]
+            w = Counter()
+            for r in res:
+                w.update(r.get("widths", {}))
+            launches[label] = w
+            kind = job["kind"]
+            if kind == "dp":
+                refs = [_single_step(torch, ctx.mcfg, job["steps"][0][r],
+                                     hp, "l1", dev, res[r]["relu"])
+                        for r in range(P)]
+                moved = [_single_step(torch, ctx.mcfg, job["steps"][0][r],
+                                      hp, "l1", dev, res[r]["relu"], True)
+                         for r in range(P)]
+                C = sum(x[1] for x in refs)
+                check(res[0]["count"] == C,
+                      f"{label}: count {res[0]['count']} != {C}")
+                _gate("dp", f"{label} first step", res[0]["loss_sum"],
+                      sum(x[0] for x in refs), 1e-6, res[0]["grads"],
+                      _count_weighted(refs), _count_weighted(moved),
+                      sum((x[3] for x in refs), []),
+                      sum((r["relu"] for r in res), []))
+                check(res[0]["launches"] == {ctx.fused_v: L,
+                                             ctx.gather_v: L},
+                      f"{label}: launches {res[0]['launches']}")
+                log(f"[dp] {label}: {PAR_STEPS} steps, parameters bitwise "
+                    f"equal on every rank; rank 0's launches in the gated "
+                    f"step {res[0]['launches']}; step {res[0]['step_ms']:.2f}"
+                    f" ms (gloo, {P} ranks on one H100)")
+            elif kind == "dp resident":
+                store = build_dense_store(job["graphs"], n_slot, job["v1"],
+                                          job["vk"], device=dev)
+                chunks = parallel_epoch_index_chunks(order, BATCH, P,
+                                                     store.num_graphs)
+                bs = [gather_any(store, torch.as_tensor(
+                    chunks[0, r], dtype=torch.long, device=dev))
+                    for r in range(P)]
+                refs = [_single_step(torch, ctx.mcfg, bs[r], hp, "l1", dev,
+                                     res[r]["relu"]) for r in range(P)]
+                moved = [_single_step(torch, ctx.mcfg, bs[r], hp, "l1", dev,
+                                      res[r]["relu"], True)
+                         for r in range(P)]
+                C = sum(x[1] for x in refs)
+                # the resident epoch reports the step's loss over its count
+                _gate("dp", f"{label} first step (mean loss)",
+                      res[0]["loss"], sum(x[0] for x in refs) / C, 1e-6,
+                      res[0]["grads"], _count_weighted(refs),
+                      _count_weighted(moved),
+                      sum((x[3] for x in refs), []),
+                      sum((r["relu"] for r in res), []))
+                check(not res[0]["launches"],
+                      f"{label}: the dense store launched "
+                      f"{res[0]['launches']}")
+                del store
+                log(f"[dp] {label}: one epoch, {res[0]['steps']} steps of "
+                    f"{P} x {BATCH} graphs gathered from a dense store, "
+                    "parameters bitwise equal on every rank")
+            elif kind == "dcn":
+                want = sum(_single_step(torch, ctx.mcfg, b, hp, "l1", dev)[0]
+                           for h in hosts for b in h)
+                delta = abs(res[0]["loss_sum"] - want)
+                bound = 1e-6 * max(1.0, abs(want))
+                log(f"[dcn] {label} (dcn, data) mesh, host_shard_loader: "
+                    f"first group's loss sum {res[0]['loss_sum']:.7f}, the "
+                    f"one-device steps' {want:.7f}: |diff| {delta:.3e} "
+                    f"(bound {bound:.1e}); parameters bitwise equal on "
+                    f"every rank; step {res[0]['step_ms']:.2f} ms (gloo, "
+                    f"{P} ranks on one H100)")
+                check(delta <= bound, f"{label}: loss sum |diff| "
+                      f"{delta:.3e} > {bound:.1e}")
+            else:
+                big = par.pal if "flagship" in label else par.poly[P][1]
+                cfg = job["cfg"]
+                n_local = res[0]["n_local"]
+                relu = _combine_relu(torch, [r["relu"] for r in res],
+                                     n_local)
+                ref = _single_step(torch, cfg, big, job["hp"], "l1", dev,
+                                   relu)
+                moved = _single_step(torch, cfg, big, job["hp"], "l1", dev,
+                                     relu, True)
+                _gate("node", label, res[0]["loss_sum"], ref[0], 1e-5,
+                      res[0]["grads"], ref[2], moved[2], ref[3], relu)
+                kernel = "banded" not in label
+                nl = L if "flagship" in label else LL
+                want = ({ctx.fused_v: nl, ctx.gather_v: nl} if kernel
+                        and job["D"] * 4 % 16 == 0 else None)
+                got = [r["launches"] for r in res]
+                if kernel:
+                    check(all(sum(g.values()) == 2 * nl for g in got)
+                          and (want is None or all(g == want for g in got)),
+                          f"{label}: per-rank launches {got}, expected "
+                          f"{nl} fused + {nl} gather on each")
+                else:
+                    check(not any(got), f"{label}: launched {got}")
+                log(f"[node] {label}: halo B {res[0]['halo']}, "
+                    f"boundary_total {res[0]['boundary']}, n_local "
+                    f"{n_local}, n_ext {res[0]['n_ext']}; comm bytes per "
+                    f"layer {res[0]['comm']} against the full-table psum's "
+                    f"{res[0]['psum']}; partition + plan on the host "
+                    f"{res[0]['partition_s']:.3f} s; launches per rank "
+                    f"{got}; step {res[0]['step_ms']:.2f} ms (gloo, {P} "
+                    "ranks on one H100)")
+    return launches
+
+
+def parallel_scripts_phase(ctx):
+    """[parallel scripts]: train_zinc --parallel data, then --parallel
+    node --backend pallas, one epoch each, a group of one on NCCL in this
+    process: ``script_phase``'s gates, and a first-step loss equal to the
+    run without --parallel (rtol 1e-4)."""
+    import torch.distributed as dist
+
+    out = {}
+    try:
+        for label, extra in (("data", ["--parallel", "data"]),
+                             ("node", ["--parallel", "node", "--backend",
+                                       "pallas"])):
+            sl = SimpleNamespace(**vars(ctx.zinc))
+            sl.argv = ctx.zinc.argv + extra + ["--save_dir", os.path.join(
+                ctx.work, f"par_{label}")]
+            _, losses, _, w = ctx.script_phase(f"parallel scripts {label}",
+                                               sl, ())
+            check(dist.is_initialized() and dist.get_backend() == "nccl"
+                  and dist.get_world_size() == 1,
+                  f"--parallel {label} did not run on a one-rank NCCL group")
+            rel = abs(losses[0] - ctx.zlosses[0]) / abs(ctx.zlosses[0])
+            log(f"[parallel scripts] --parallel {label}: first-step loss "
+                f"{losses[0]:.7f}, without --parallel {ctx.zlosses[0]:.7f} "
+                f"(rel diff {rel:.2e}); NCCL, world size 1")
+            check(rel <= 1e-4, f"--parallel {label}: first-step loss rel "
+                  f"diff {rel:.2e} > 1e-4")
+            out[label] = w
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return out
+
+
 def main():
     import torch
 
@@ -2303,6 +2777,17 @@ def main():
             f"{lplan.fwd.n_rows} rows, at most {int(ld.max())} edges a row, "
             f"{lplan.fwd.senders.shape[0]} live hop edges; collate_pallas on "
             f"the host {large_collate_s:.3f} s")
+        # the multi-rank legs' batches and each node leg's rank-0
+        # rectangular kernel plan (K·n_local rows over K·n_ext senders)
+        par = parallel_data(torch, zinc_train, lk, mcfg, large_cfg)
+        par.shard_plans = {k: (sp.to(dev), d)
+                           for k, (sp, d) in par.shard_plans.items()}
+        for label, (sp, d) in par.shard_plans.items():
+            log(f"[plan] {label} rank 0 (D={d}): fwd {sp.fwd.n_rows} rows "
+                f"over {sp.fwd.n_cols} sender rows ({sp.K} hops of "
+                f"{sp.fwd.rows_per_hop} / {sp.bwd.rows_per_hop}), "
+                f"{sp.fwd.senders.shape[0]} live hop edges; rows up to the "
+                f"last live one per hop {sp.fwd.hop_live}")
 
         def collate_ms(loader):
             ts = []
@@ -2570,6 +3055,19 @@ def main():
                 shape="large")
         compare_fused(f"large k={large_cfg.K}", lplan, LD,
                       VK=lplan.countsk_hm.shape[2], shape="large")
+        # the node legs' rectangular plans (rank 0's): forward K·n_local
+        # rows over K·n_ext sender rows, backward the transpose
+        # (rows_per_hop = n_ext); the flagship's first hop window too
+        for label, (sp, d) in par.shard_plans.items():
+            poly = "polymers" in label
+            compare(label, sp.fwd, sp.bwd, d, hub=poly, shape=label)
+            compare_fused(label, sp, d, VK=sp.countsk_hm.shape[2],
+                          shape=label)
+        sp1 = par.shard_plans["shard flagship P=2"][0].slice_hops(1)
+        compare("shard flagship P=2 k=1", sp1.fwd, sp1.bwd, H,
+                shape="shard flagship P=2")
+        compare_fused("shard flagship P=2 k=1", sp1, H, VK=VK,
+                      shape="shard flagship P=2")
 
         # determinism: three launches of every variant on one input, each
         # on the CSR where the main path launches it
@@ -3198,6 +3696,12 @@ def main():
         mark("banded tune")
         device_prep_phase(ctx)
         mark("device_prep")
+        # ---- 12. multi-rank training: data-parallel, node-sharded, dcn ----
+        ctx.par, ctx.tl, ctx.lcfg = par, tl, large_cfg
+        par_w = parallel_phase(ctx)
+        mark("parallel")
+        pscript_w = parallel_scripts_phase(ctx)
+        mark("parallel scripts")
         # ---- 9. times, on the flagship k=8 plan ----
         def sparse(c, dtype):
             n_e = c.senders.shape[0]
@@ -3419,6 +3923,9 @@ def main():
         new_t["large"] = shape_times(lplan, LD, f"large k={large_cfg.K}",
                                      lplan.countsk_hm.shape[2])[2]
         mark("time expressiveness")
+        shard_t = {label: shape_times(sp, d, label, sp.countsk_hm.shape[2])[2]
+                   for label, (sp, d) in par.shard_plans.items()}
+        mark("time shard plans")
         # ---- the banded aggregation beside the kernel path ----
         banded_times(ctx, gathered)
         mark("time banded")
@@ -3435,6 +3942,10 @@ def main():
                 + search_w + ckpt_w + prof_w + large_w)
     for (vname, _), n in sum(gen_w.values(), zinc_csl_w + qm9_w + prime_w
                              + bf16_w + new_runs).items():
+        all_launches[vname] += n
+    # the multi-rank legs (summed over their ranks) and the --parallel runs
+    for (vname, _), n in sum(list(par_w.values()) + list(pscript_w.values()),
+                             Counter()).items():
         all_launches[vname] += n
     # the main path's shapes, each timed on the CSR where it launches:
     # (name suffix, label, D, error key, fused times, gather times,
@@ -3495,6 +4006,19 @@ def main():
         entries.append(new_entry(
             vname, LD, f"profile_step large k={large_cfg.K} plan", "large",
             new_t["large"][vname, "fwd" if fused else "bwd"], large_w))
+    # the node legs' rectangular plans (rank 0's), each with the launches
+    # of its kernel-plan leg summed over the ranks
+    shard_runs = {"shard flagship P=2": "node flagship P=2",
+                  "shard polymers P=2": "node polymers P=2 kernel plan",
+                  "shard polymers P=4": "node polymers P=4 kernel plan"}
+    for label, (sp, d) in par.shard_plans.items():
+        for fused in (True, False):
+            vname = spmm.variant_name(torch.float32, d * 4 % 16 == 0, fused)
+            entries.append(new_entry(
+                vname, d, f"{label} rank 0 plan ({sp.fwd.n_rows} x "
+                f"{sp.fwd.n_cols} forward)", label,
+                shard_t[label][vname, "fwd" if fused else "bwd"],
+                par_w[shard_runs[label]]))
     # --bf16 on the flagship: the bf16 variants where its path launches
     # them (the byte bound at 2-byte x; torch.sparse.mm on bf16 where
     # PyTorch takes it)

@@ -34,6 +34,7 @@ from ..nn.norms import (GraphSizeNorm, MaskedBatchNorm, MaskedGraphLayerNorm,
 from ..ops.adjacency import hop_major_native
 from ..ops.lstm import BiLSTM
 from ..ops.segment import segment_sum
+from ..ops.sharded_adjacency import node_axis, preduce
 
 
 def _dropout(x: torch.Tensor, rate: float, train: bool,
@@ -65,12 +66,16 @@ def _make_norm(norm_type: str, features: int) -> nn.Module:
 def _apply_norm(norm: nn.Module, x: torch.Tensor, batch: GraphBatch,
                 train: bool) -> torch.Tensor:
     """One per-layer norm with its masking inputs (the JAX package's
-    switch, kpgnn_tpu/models/backbones.py:52-76)."""
+    switch, kpgnn_tpu/models/backbones.py:52-76); on a node shard its
+    statistics complete over the node group."""
+    group = node_axis(batch)
     if isinstance(norm, MaskedBatchNorm):
-        return norm(x, mask=batch.node_mask, use_running_average=not train)
+        return norm(x, mask=batch.node_mask, use_running_average=not train,
+                    group=group)
     if isinstance(norm, PairNorm):
-        return norm(x, mask=batch.node_mask)
-    return norm(x, batch.node_graph_ids, batch.g_pad, mask=batch.node_mask)
+        return norm(x, mask=batch.node_mask, group=group)
+    return norm(x, batch.node_graph_ids, batch.g_pad, mask=batch.node_mask,
+                group=group)
 
 
 class _PeripheralEmbed(nn.Module):
@@ -150,9 +155,9 @@ class _VirtualNode(nn.Module):
 
     def update(self, layer: int, h_prev, vn, batch: GraphBatch, train: bool,
                residual: bool, drop_prob: float, generator) -> torch.Tensor:
-        pooled = segment_sum(
+        pooled = preduce(segment_sum(
             h_prev * batch.node_mask[:, None].to(h_prev.dtype),
-            batch.node_graph_ids, batch.g_pad).float()
+            batch.node_graph_ids, batch.g_pad).float(), node_axis(batch))
         out = getattr(self, f"mlp_virtualnode_{layer}")(
             pooled + vn, mask=batch.graph_mask, train=train)
         out = _dropout(out, drop_prob, train, generator)

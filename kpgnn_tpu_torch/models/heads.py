@@ -12,25 +12,54 @@ from ..graph.batch import GraphBatch
 from ..nn.basic import TorchLinear
 from ..ops.segment import (segment_max, segment_mean, segment_softmax,
                            segment_sum)
+from ..ops.sharded_adjacency import all_reduce_max, all_reduce_sum, node_axis
 
 
 def pool_nodes(x: torch.Tensor, batch: GraphBatch, method: str,
                gate: Optional[nn.Module] = None) -> torch.Tensor:
-    """Masked per-graph pooling into the (g_pad, ...) graph slots."""
+    """Masked per-graph pooling into the (g_pad, ...) graph slots.  Graph
+    slots are global: on a node shard each rank pools its own nodes into
+    the full table and one all-reduce over the node group completes it,
+    so the pooled output (and the head and loss after it) is
+    replicated."""
     gid, g = batch.node_graph_ids, batch.g_pad
+    grp = node_axis(batch)
     m = batch.node_mask.to(x.dtype)[:, None]
     if method == "sum":
-        return segment_sum(x * m, gid, g)
+        out = segment_sum(x * m, gid, g)
+        return out if grp is None else all_reduce_sum(out, grp)
     if method == "mean":
-        return segment_mean(x, gid, g, weights=batch.node_mask)
+        if grp is None:
+            return segment_mean(x, gid, g, weights=batch.node_mask)
+        tot = all_reduce_sum(segment_sum(x * m, gid, g), grp)
+        cnt = all_reduce_sum(segment_sum(m, gid, g), grp)
+        return tot / torch.clamp(cnt, min=1.0)
     if method == "max":
         xm = torch.where(batch.node_mask[:, None], x, -torch.inf)
         out = segment_max(xm, gid, g)
+        if grp is not None:
+            # the max has no gradient of its own: the global max (no grad)
+            # plus the summed residual out - out.detach(), zero in value,
+            # which carries the gradient from the rank(s) holding the max
+            gmax = all_reduce_max(out, grp)
+            res = torch.where(out == gmax, out - out.detach(),
+                              torch.zeros_like(out))
+            out = gmax + all_reduce_sum(res, grp)
         return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
     if method == "attention":
         scores = gate(x)[:, 0]
-        att = segment_softmax(scores, gid, g, mask=batch.node_mask)
-        return segment_sum(x * att[:, None] * m, gid, g)
+        if grp is None:
+            att = segment_softmax(scores, gid, g, mask=batch.node_mask)
+            return segment_sum(x * att[:, None] * m, gid, g)
+        s = torch.where(batch.node_mask, scores, -torch.inf)
+        # a stabiliser only: the softmax is shift-invariant
+        smax = all_reduce_max(segment_max(s.detach(), gid, g), grp)
+        smax = torch.where(torch.isfinite(smax), smax, 0.0)
+        ex = torch.where(batch.node_mask, torch.exp(s - smax[gid.long()]),
+                         0.0)
+        denom = all_reduce_sum(segment_sum(ex, gid, g), grp)
+        num = all_reduce_sum(segment_sum(x * ex[:, None] * m, gid, g), grp)
+        return num / torch.clamp(denom, min=1e-16)[:, None]
     raise ValueError("The pooling method not implemented")
 
 

@@ -33,7 +33,8 @@ class TorchLinear(nn.Module):
 
 class MLP(nn.Module):
     """Linear(+masked BN)+ReLU stack (lin0, bn0, lin1, bn1, ...); padded
-    rows never enter the BN statistics."""
+    rows never enter the BN statistics, which complete over the node
+    ``group`` when the rows are a node shard."""
 
     def __init__(self, in_features: int, features: Sequence[int],
                  use_batchnorm: bool = False):
@@ -50,11 +51,12 @@ class MLP(nn.Module):
             d = f
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False, group=None) -> torch.Tensor:
         for i in range(self.n):
             x = getattr(self, f"lin{i}")(x)
             if self.use_batchnorm:
                 x = getattr(self, f"bn{i}")(x, mask=mask,
-                                            use_running_average=not train)
+                                            use_running_average=not train,
+                                            group=group)
             x = F.relu(x)
         return x

@@ -22,6 +22,7 @@ from torch import nn
 
 from ..ops.adjacency import degree, hop_major_native, khop_aggregate_adj
 from ..ops.banded import BandedAdj
+from ..ops.sharded_adjacency import node_axis
 from .basic import MLP, TorchLinear
 from .combine import make_combine
 from .embed import small_table_lookup, zero_row
@@ -276,7 +277,8 @@ class KPGINPlusConv(_EdgeTables):
         if peripheral_attr is not None:
             x_n = x_n + peripheral_attr
         h = self.combine(x_n, hop_major=True) if self.K > 1 else x_n[0]
-        return self.mlp(h, mask=node_mask, train=train)
+        return self.mlp(h, mask=node_mask, train=train,
+                        group=node_axis(adj))
 
 
 class GINEConv(nn.Module):
@@ -309,7 +311,8 @@ class GINEConv(nn.Module):
                                  None)
         eps = self.eps if self.eps is not None else self.eps_init
         out = out + (1.0 + eps) * x
-        return self.mlp(out[:, 0], mask=node_mask, train=train)
+        return self.mlp(out[:, 0], mask=node_mask, train=train,
+                        group=node_axis(adj))
 
 
 def make_gnn_layer(model_name: str, hidden_size: int, K: int,

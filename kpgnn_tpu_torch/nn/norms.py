@@ -6,6 +6,12 @@ where the norm is per graph.  Batch norm: batch mean and biased variance
 normalize; the running estimate uses the unbiased variance over the
 masked count, momentum 0.1 (torch defaults).  Layer (PyG graph mode),
 Instance, GraphSize and Pair follow the JAX package's definitions.
+
+Every norm takes the node ``group``: when the node axis is sharded over
+a process group (ops/sharded_adjacency.py), the masked sums and the
+per-graph segment sums are local partials, and a differentiable
+all-reduce over the group completes them, so the statistics equal the
+one-device ones (graph slots are global: per-graph partial tables add).
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ import torch
 from torch import nn
 
 from ..ops.segment import segment_sum
+from ..ops.sharded_adjacency import preduce
 
 
 class MaskedBatchNorm(nn.Module):
@@ -36,7 +43,8 @@ class MaskedBatchNorm(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                use_running_average: bool = True) -> torch.Tensor:
+                use_running_average: bool = True,
+                group=None) -> torch.Tensor:
         in_dtype = x.dtype
         x = x.float()
         features = x.shape[-1]
@@ -49,9 +57,10 @@ class MaskedBatchNorm(nn.Module):
                                     device=x.device)
             else:
                 flat_m = mask.to(x.dtype).reshape(-1)
-            cnt = torch.clamp(flat_m.sum(), min=1.0)
-            mean = (flat_x * flat_m[:, None]).sum(0) / cnt
-            var = (((flat_x - mean) ** 2) * flat_m[:, None]).sum(0) / cnt
+            cnt = torch.clamp(preduce(flat_m.sum(), group), min=1.0)
+            mean = preduce((flat_x * flat_m[:, None]).sum(0), group) / cnt
+            var = preduce((((flat_x - mean) ** 2) * flat_m[:, None]).sum(0),
+                          group) / cnt
             with torch.no_grad():
                 unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
                 m = self.momentum
@@ -85,18 +94,19 @@ class MaskedGraphLayerNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor, graph_ids: torch.Tensor,
-                num_graphs: int,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                num_graphs: int, mask: Optional[torch.Tensor] = None,
+                group=None) -> torch.Tensor:
         in_dtype = x.dtype
         x = x.float()
         m = _node_mask(x, mask)
-        cnt = torch.clamp(segment_sum(m[:, 0] * float(x.shape[-1]),
-                                      graph_ids, num_graphs), min=1.0)
-        mean = (segment_sum((x * m).sum(-1), graph_ids, num_graphs)
-                / cnt)[graph_ids][:, None]
+        cnt = torch.clamp(preduce(segment_sum(
+            m[:, 0] * float(x.shape[-1]), graph_ids, num_graphs), group),
+            min=1.0)
+        mean = (preduce(segment_sum((x * m).sum(-1), graph_ids, num_graphs),
+                        group) / cnt)[graph_ids][:, None]
         xc = (x - mean) * m
-        var = (segment_sum((xc ** 2).sum(-1), graph_ids, num_graphs)
-               / cnt)[graph_ids][:, None]
+        var = (preduce(segment_sum((xc ** 2).sum(-1), graph_ids, num_graphs),
+                       group) / cnt)[graph_ids][:, None]
         y = xc * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return y.to(in_dtype)
 
@@ -109,15 +119,17 @@ class MaskedInstanceNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor, graph_ids: torch.Tensor,
-                num_graphs: int,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                num_graphs: int, mask: Optional[torch.Tensor] = None,
+                group=None) -> torch.Tensor:
         in_dtype = x.dtype
         x = x.float()
         m = _node_mask(x, mask)
-        cnt = torch.clamp(segment_sum(m, graph_ids, num_graphs), min=1.0)
-        mean = segment_sum(x * m, graph_ids, num_graphs) / cnt
+        cnt = torch.clamp(preduce(segment_sum(m, graph_ids, num_graphs),
+                                  group), min=1.0)
+        mean = preduce(segment_sum(x * m, graph_ids, num_graphs), group) / cnt
         xc = (x - mean[graph_ids]) * m
-        var = segment_sum(xc ** 2, graph_ids, num_graphs) / cnt
+        var = preduce(segment_sum(xc ** 2, graph_ids, num_graphs),
+                      group) / cnt
         return (xc * torch.rsqrt(var[graph_ids] + self.eps)).to(in_dtype)
 
 
@@ -125,9 +137,10 @@ class GraphSizeNorm(nn.Module):
     """x_i / sqrt(|G(i)|), |G| counted over real nodes."""
 
     def forward(self, x: torch.Tensor, graph_ids: torch.Tensor,
-                num_graphs: int,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        cnt = segment_sum(_node_mask(x, mask)[:, 0], graph_ids, num_graphs)
+                num_graphs: int, mask: Optional[torch.Tensor] = None,
+                group=None) -> torch.Tensor:
+        cnt = preduce(segment_sum(_node_mask(x, mask)[:, 0], graph_ids,
+                                  num_graphs), group)
         return x * torch.rsqrt(torch.clamp(cnt, min=1.0))[graph_ids][:, None]
 
 
@@ -140,10 +153,10 @@ class PairNorm(nn.Module):
         self.scale = scale
         self.eps = eps
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                group=None) -> torch.Tensor:
         m = _node_mask(x, mask)
-        cnt = torch.clamp(m.sum(), min=1.0)
-        xc = (x - (x * m).sum(0) / cnt) * m
-        return self.scale * xc * torch.rsqrt((xc ** 2).sum() / cnt
-                                             + self.eps)
+        cnt = torch.clamp(preduce(m.sum(), group), min=1.0)
+        xc = (x - preduce((x * m).sum(0), group) / cnt) * m
+        return self.scale * xc * torch.rsqrt(preduce((xc ** 2).sum(), group)
+                                             / cnt + self.eps)

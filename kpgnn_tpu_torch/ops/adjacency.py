@@ -19,6 +19,10 @@ Four backends, one logical op:
   masks for large, locally ordered graphs; the in-band sum is one
   batched matmul, the out-of-band edges a COO spill list.  Natively
   hop-major, add or mean, GCN's sender scale folded into the plan.
+* ``ShardedCOOAdj`` (``--parallel node``, ops/sharded_adjacency.py): one
+  rank's shard of a node-partitioned batch; a halo exchange, then the
+  local aggregation on COO, the kernel's rectangular plan or a banded
+  plan (hop-major native with either plan).
 
 out[i,k] = aggr_j live * s_i[k] * s_j[k] * (x[j,k] + emb_k(attr)).
 """
@@ -32,6 +36,9 @@ import torch
 from ..nn.embed import small_table_lookup, zero_row
 from .banded import BandedAdj, banded_khop_aggregate
 from .segment import khop_aggregate, multi_hop_degree, segment_sum
+from .sharded_adjacency import (ShardedCOOAdj, sharded_degree,
+                                sharded_khop_aggregate,
+                                sharded_union_in_degree)
 from .spmm import KHopPlan, khop_spmm
 
 
@@ -116,19 +123,24 @@ class DenseAdj:
 
 def _unported(adj) -> NotImplementedError:
     return NotImplementedError(
-        f"aggregation over {type(adj).__name__} is not ported yet "
-        "(ROADMAP.md, Queue 1): collate in 'coo', 'pallas', 'dense' or "
-        "'banded' mode")
+        f"aggregation over {type(adj).__name__} is not ported (ROADMAP.md, "
+        "Queue 1): collate in 'coo', 'pallas', 'dense' or 'banded' mode, "
+        "or partition the batch (parallel/partition.py)")
 
 
 def hop_major_native(adj) -> bool:
     """True for backends whose aggregation is natively hop-major
-    (K, N, D)."""
+    (K, N, D): the kernel plan, banded, and a node shard carrying
+    either."""
+    if isinstance(adj, ShardedCOOAdj):
+        return adj.plan is not None or adj.banded is not None
     return isinstance(adj, (KHopPlan, BandedAdj))
 
 
 def degree(adj, add_self_loop: bool = False) -> torch.Tensor:
     """(N, K) per-hop in-degree over live hop entries."""
+    if isinstance(adj, ShardedCOOAdj):
+        return sharded_degree(adj, add_self_loop)
     if isinstance(adj, COOAdj):
         return multi_hop_degree(adj.edge_attr, adj.receivers, adj.n_nodes,
                                 add_self_loop)
@@ -168,7 +180,12 @@ def khop_aggregate_adj(
     """The k-hop aggregate in x's layout.  The plan backend runs either
     layout natively, banded hop-major natively (node-major pays one
     transpose each way), dense runs hop-major add natively; otherwise a
-    hop-major x is transposed at the boundary."""
+    hop-major x is transposed at the boundary.  A node shard exchanges
+    its halo and aggregates locally in x's layout."""
+    if isinstance(adj, ShardedCOOAdj):
+        return sharded_khop_aggregate(adj, x, table1, tablek, scale=scale,
+                                      sender_scale=sender_scale, aggr=aggr,
+                                      hop_major=hop_major)
     if isinstance(adj, KHopPlan):
         return khop_spmm(x, table1, tablek, adj, scale=scale,
                          sender_scale=sender_scale, aggr=aggr,

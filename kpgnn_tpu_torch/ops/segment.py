@@ -90,7 +90,8 @@ def khop_aggregate(x: torch.Tensor,             # (N, K, D)
                    edge_mask: torch.Tensor,     # (E,) real edges
                    *,
                    scale: Optional[torch.Tensor] = None,      # (E, K)
-                   aggr: str = "add") -> torch.Tensor:
+                   aggr: str = "add",
+                   num_segments: Optional[int] = None) -> torch.Tensor:
     """out[i, k] = aggr over edges e into i of
     live[e, k] * scale[e, k] * (x[senders[e], k] + edge_emb[e, k]).
 
@@ -101,9 +102,11 @@ def khop_aggregate(x: torch.Tensor,             # (N, K, D)
     The sender rows are gathered with ``F.embedding``, not ``x[senders]``:
     a batch's padded edges all start at one node, and the indexing
     gather's backward serialises on a repeated id on the card (545 of
-    584 device ms per flagship coo step, PERF.md §5)."""
-    n = x.shape[0]
-    msg = F.embedding(senders.long(), x.reshape(n, -1)).reshape(
+    584 device ms per flagship coo step, PERF.md §5).  The output has
+    ``num_segments`` rows (default: x's; a node shard reads senders from
+    a halo-extended table longer than its own rows)."""
+    n = x.shape[0] if num_segments is None else num_segments
+    msg = F.embedding(senders.long(), x.reshape(x.shape[0], -1)).reshape(
         (-1,) + tuple(x.shape[1:])) + edge_emb
     if scale is not None:
         msg = msg * scale[..., None]

@@ -18,22 +18,29 @@ device (``train.loop.resident_rule``).  ``prepare`` caches prep under
 > 1 preps on a pool of processes.  ``--load_path`` warm-starts from a
 checkpoint, ``--save_checkpoints`` keeps the best epochs' under
 ``<save_dir>/checkpoints`` and ``--profile_dir`` gets a torch.profiler
-trace of epoch 1 (train/loop.Trainer).  Options whose code paths are not
-ported yet raise ``NotImplementedError`` naming ROADMAP.md instead of
-being ignored: ``--parallel``.
+trace of epoch 1 (train/loop.Trainer).  ``--parallel data|node`` trains
+over a process group (parallel/): under torchrun's environment the run
+joins that group (NCCL on the card, gloo on the CPU); run as a command
+on a machine with more than one visible GPU, ``cli`` starts one process
+per GPU; otherwise the run is a group of one, in this process.
 ``--matmul_precision`` has nothing to select: the port runs f32 matmuls
 in full f32.
 """
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
+import logging
 import os
+import sys
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..models.factory import ModelConfig, make_model
+from ..parallel import mesh as mesh_lib
 from ..prep.khop import KHopConfig, apply_ablation_clamps
 from ..prep.runner import preprocess_graphs
 from ..train.config import TrainConfig
@@ -145,7 +152,11 @@ def base_parser(description: str, **defaults) -> argparse.ArgumentParser:
                         "at least half full)")
     p.add_argument("--parallel", nargs="?", const="data", default=None,
                    choices=("data", "node"),
-                   help="multi-device training (not ported yet)")
+                   help="training over every visible device: 'data' "
+                        "(default when the flag is bare) = one batch per "
+                        "rank with gradient sums; 'node' = every batch "
+                        "node-sharded over the ranks with a halo exchange "
+                        "(for graphs too large for one card)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train on; without CUDA the run "
                         "raises unless --device cpu is given")
@@ -210,15 +221,6 @@ def backend(args) -> str:
     return "dense" if args.dense else args.backend
 
 
-def check_ported(args) -> None:
-    """Raise for options whose code paths are not ported yet: only
-    ``--parallel``, under any mode and with any backend."""
-    if args.parallel:
-        raise NotImplementedError(
-            "not ported to kpgnn_tpu_torch yet (ROADMAP.md, Queue 1): "
-            f"--parallel {args.parallel}")
-
-
 def set_full_f32() -> None:
     """Full-f32 matmuls and convolutions on the card: TF32 off for both
     cuBLAS and cuDNN (cuDNN's default would round to TF32)."""
@@ -226,10 +228,83 @@ def set_full_f32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def maybe_mesh(args):
+    """--parallel [data|node]: a one-axis mesh over the process group,
+    named after the mode; None without --parallel.  Joins torchrun's
+    group (NCCL for a cuda --device, else gloo), or forms a group of one
+    in this process, unless the group exists already (a rank started by
+    ``cli``)."""
+    mode = getattr(args, "parallel", None)
+    if not mode:
+        return None
+    backend = "nccl" if torch.device(args.device).type == "cuda" else "gloo"
+    if not dist.is_initialized():
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            mesh_lib.from_env(backend)
+        else:
+            mesh_lib.local_group(backend)
+    return mesh_lib.make_mesh(("node" if mode == "node" else "data",),
+                              device=mesh_lib.default_device(
+                                  dist.get_backend()))
+
+
+def parallel_kwargs(args, mcfg: Optional[ModelConfig] = None) -> dict:
+    """Trainer kwargs of the execution mode: ``resident``, and under
+    --parallel the mesh and the mode; under --parallel node with
+    --backend pallas|banded the local plans attach at partition time
+    (the loader collates COO, ``loader_kwargs``), so the Trainer gets
+    their vocab sizes here."""
+    kw = {"resident": getattr(args, "resident", "auto")}
+    mode = getattr(args, "parallel", None)
+    if mode:
+        kw.update(mesh=maybe_mesh(args), parallel_mode=mode)
+        if mode == "node" and backend(args) in ("pallas", "banded"):
+            if mcfg is None:
+                raise ValueError(
+                    "--parallel node with --backend pallas/banded needs "
+                    "the model config for plan vocab sizes")
+            kw["partition_plans"] = {backend(args): {
+                "v1": mcfg.num_hop1_edge + 2, "vk": mcfg.max_pe_num + 2}}
+    return kw
+
+
+def _rank_cli(rank: int, world_size: int, module: str, argv: List[str]):
+    importlib.import_module(module).main(argv)
+
+
+def cli(main, parser) -> None:
+    """A script's command-line entry.  --parallel on a cuda --device with
+    more than one visible GPU, outside torchrun's environment: one NCCL
+    rank per GPU, each running ``main`` on the command line's arguments.
+    Otherwise ``main()`` in this process."""
+    args, _ = parser().parse_known_args()
+    n_gpus = (torch.cuda.device_count()
+              if torch.device(args.device).type == "cuda" else 0)
+    if args.parallel and n_gpus > 1 and "RANK" not in os.environ:
+        module = main.__module__
+        if module == "__main__":
+            module = sys.modules["__main__"].__spec__.name
+        mesh_lib.spawn(_rank_cli, n_gpus, "nccl",
+                       args=(module, sys.argv[1:]))
+    else:
+        main()
+
+
 def setup_run(args, dataset: str):
-    check_ported(args)
+    """The run's save directory and logger.  Under --parallel only rank 0
+    logs and makes the numbered run directory; another rank gets a
+    logger that drops messages and ``<save_dir>/train/rank<r>``."""
     set_full_f32()
     name = run_name(args, dataset)
+    mesh = maybe_mesh(args)
+    if mesh is not None and mesh.rank != 0:
+        save_dir = os.path.join(args.save_dir, "train", f"rank{mesh.rank}")
+        os.makedirs(save_dir, exist_ok=True)
+        args.save_dir = save_dir
+        logger = logging.getLogger(f"{name}.rank{mesh.rank}")
+        logger.handlers[:] = [logging.NullHandler()]
+        logger.propagate = False
+        return save_dir, logger
     save_dir = get_save_dir(args.save_dir, name)
     args.save_dir = save_dir
     logger = get_logger(save_dir, name)
@@ -257,7 +332,9 @@ def loader_kwargs(args, mcfg: ModelConfig) -> dict:
     """Loader kwargs of the chosen backend; the kernel plan, the dense
     tiles and the banded plan need the model's vocab sizes, KPGCN's
     banded plan folds in its sender scale, and the kernel and banded
-    plans refuse ``--aggr max``, as in the JAX CLI."""
+    plans refuse ``--aggr max``, as in the JAX CLI.  Under --parallel
+    node the kernel and banded plans attach at partition time
+    (``parallel_kwargs``), so the loader collates COO."""
     mode = backend(args)
     aggr = getattr(args, "aggr", "add")
     if aggr == "max" and mode in ("pallas", "banded"):
@@ -265,7 +342,8 @@ def loader_kwargs(args, mcfg: ModelConfig) -> dict:
             f"--aggr max is not available on the {mode} backend (its "
             "plan stores attr histograms / one-hot sums, not the per-edge "
             "codes max needs) — use --backend coo or dense")
-    if mode == "coo":
+    if mode == "coo" or (getattr(args, "parallel", None) == "node"
+                         and mode in ("pallas", "banded")):
         return {"mode": "coo"}
     kw = {"mode": mode, "v1": mcfg.num_hop1_edge + 2,
           "vk": mcfg.max_pe_num + 2}
@@ -292,7 +370,8 @@ def fit_runs(args, splits, mcfg: ModelConfig, loss: str, logger,
         trainer = Trainer(make_model(mcfg),
                           train_config(args, loss, stop_at_min_lr=True),
                           loss=loss, node_level=node_level, logger=logger,
-                          device=args.device, resident=args.resident)
+                          device=args.device,
+                          **parallel_kwargs(args, mcfg))
         _, res = trainer.fit(tl, vl, el, seed=args.seed + run,
                              epoch_callback=epoch_callback)
         results.append(res["best_test"])

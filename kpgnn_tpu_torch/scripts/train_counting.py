@@ -21,7 +21,8 @@ import numpy as np
 
 from ..data.counting import generate_counting_dataset
 from ..train.loop import resolve_device
-from .common import base_parser, fit_runs, model_config, prepare, setup_run
+from .common import (base_parser, cli, fit_runs, model_config, prepare,
+                     setup_run)
 
 
 def parser():
@@ -83,4 +84,4 @@ def main(argv=None, epoch_callback=None):
 
 
 if __name__ == "__main__":
-    main()
+    cli(main, parser)

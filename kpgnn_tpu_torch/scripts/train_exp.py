@@ -24,8 +24,8 @@ from ..data.expressiveness import load_exp_pickle, load_exp_txt
 from ..models.factory import make_model
 from ..train.loader import GraphLoader
 from ..train.loop import Trainer, resolve_device
-from .common import (base_parser, loader_kwargs, model_config, prepare,
-                     setup_run, train_config)
+from .common import (base_parser, cli, loader_kwargs, model_config,
+                     parallel_kwargs, prepare, setup_run, train_config)
 
 
 def parser():
@@ -96,7 +96,7 @@ def main(argv=None, epoch_callback=None):
         trainer = Trainer(model, train_config(args, "cross_entropy"),
                           loss="cross_entropy", metric_mode="min",
                           use_scheduler=False, logger=logger,
-                          device=args.device, resident=args.resident)
+                          device=args.device, **parallel_kwargs(args, mcfg))
         _, res = trainer.fit(tl, vl, el, seed=args.seed + fold,
                              epoch_callback=epoch_callback)
         acc = res["best_test"].get("accuracy", 0.0)
@@ -108,4 +108,4 @@ def main(argv=None, epoch_callback=None):
 
 
 if __name__ == "__main__":
-    main()
+    cli(main, parser)

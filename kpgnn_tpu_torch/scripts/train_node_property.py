@@ -21,7 +21,8 @@ import numpy as np
 
 from ..data.property import generate_property_dataset
 from ..train.loop import resolve_device
-from .common import base_parser, fit_runs, model_config, prepare, setup_run
+from .common import (base_parser, cli, fit_runs, model_config, prepare,
+                     setup_run)
 from .train_graph_property import log10_mse
 
 
@@ -78,4 +79,4 @@ def main(argv=None, epoch_callback=None):
 
 
 if __name__ == "__main__":
-    main()
+    cli(main, parser)

@@ -21,8 +21,8 @@ from ..data.molecules import QM9_CONVERSION, load_qm9, load_qm9_raw
 from ..models.factory import make_model
 from ..train.loader import GraphLoader
 from ..train.loop import Trainer, resolve_device
-from .common import (base_parser, loader_kwargs, model_config, prepare,
-                     setup_run, train_config)
+from .common import (base_parser, cli, loader_kwargs, model_config,
+                     parallel_kwargs, prepare, setup_run, train_config)
 
 
 def parser():
@@ -102,7 +102,7 @@ def main(argv=None, epoch_callback=None):
                       train_config(args, "mse", stop_at_min_lr=True),
                       loss="mse", metric_mode="min", eval_metric="mae",
                       logger=logger, device=args.device,
-                      resident=args.resident)
+                      **parallel_kwargs(args, mcfg))
     _, res = trainer.fit(tl, vl, el, seed=args.seed,
                          epoch_callback=epoch_callback)
     # MAE in dataset units, normalized, and converted back to the
@@ -118,4 +118,4 @@ def main(argv=None, epoch_callback=None):
 
 
 if __name__ == "__main__":
-    main()
+    cli(main, parser)

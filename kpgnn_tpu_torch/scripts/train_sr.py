@@ -22,8 +22,8 @@ from ..data.expressiveness import load_sr25
 from ..models.factory import make_model
 from ..train.loader import GraphLoader
 from ..train.loop import Trainer, resolve_device
-from .common import (base_parser, loader_kwargs, model_config, prepare,
-                     setup_run, train_config)
+from .common import (base_parser, cli, loader_kwargs, model_config,
+                     parallel_kwargs, prepare, setup_run, train_config)
 
 
 def parser():
@@ -66,7 +66,7 @@ def main(argv=None, epoch_callback=None):
                       loss="cross_entropy", metric_mode="max",
                       use_scheduler=False, bn_train_mode_eval=True,
                       logger=logger, device=args.device,
-                      resident=args.resident)
+                      **parallel_kwargs(args, mcfg))
     _, res = trainer.fit(loader, eval_loader, eval_loader, seed=args.seed,
                          epoch_callback=epoch_callback)
     acc = res["best_val"]
@@ -75,4 +75,4 @@ def main(argv=None, epoch_callback=None):
 
 
 if __name__ == "__main__":
-    main()
+    cli(main, parser)

@@ -18,7 +18,8 @@ import numpy as np
 
 from ..data.molecules import load_zinc
 from ..train.loop import resolve_device
-from .common import base_parser, fit_runs, model_config, prepare, setup_run
+from .common import (base_parser, cli, fit_runs, model_config, prepare,
+                     setup_run)
 
 
 def parser():
@@ -56,4 +57,4 @@ def main(argv=None, epoch_callback=None):
 
 
 if __name__ == "__main__":
-    main()
+    cli(main, parser)

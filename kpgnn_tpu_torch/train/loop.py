@@ -1,6 +1,7 @@
 """Train/eval steps and the epoch-level Trainer (counterpart of
 kpgnn_tpu/train/loop.py: the per-batch and the resident paths, with
-checkpoints and profiling; the parallel paths are not ported yet).
+checkpoints and profiling, on one device or, with a mesh, over a process
+group in data-parallel or node-sharded mode, parallel/).
 
 Losses and metrics are computed under the batch masks: padded graph and
 node slots add zero to sums and to counts.
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import os
 import time
@@ -133,14 +135,16 @@ def eval_step(model, batch: GraphBatch, loss: str = "l1",
 
 def train_epoch(model, opt, batches, loss: str = "l1",
                 generator: Optional[torch.Generator] = None,
-                node_level: bool = False) -> Tuple[float, np.ndarray]:
+                node_level: bool = False,
+                step: Callable = train_step) -> Tuple[float, np.ndarray]:
     """Mean train loss of one epoch and the per-step losses.  Step
-    results stay on the device until the epoch ends (one sync)."""
+    results stay on the device until the epoch ends (one sync).
+    ``step`` has ``train_step``'s signature and result (the parallel
+    steps return sums over the whole group)."""
     sums: List[torch.Tensor] = []
     counts: List[torch.Tensor] = []
     for batch in batches:
-        lsum, cnt = train_step(model, opt, batch, loss, generator,
-                               node_level)
+        lsum, cnt = step(model, opt, batch, loss, generator, node_level)
         sums.append(lsum)
         counts.append(cnt)
     if not sums:
@@ -151,12 +155,13 @@ def train_epoch(model, opt, batches, loss: str = "l1",
 
 
 def evaluate(model, batches, loss: str = "l1", metric: str = "same",
-             node_level: bool = False, bn_train_mode: bool = False
-             ) -> Dict[str, float]:
+             node_level: bool = False, bn_train_mode: bool = False,
+             step: Callable = eval_step) -> Dict[str, float]:
     """The epoch metrics over the real graphs (nodes, under
     ``node_level``) of all batches (``summarize_eval_sums``), with one
-    host sync; ``bn_train_mode`` as in ``eval_step``."""
-    steps = [eval_step(model, b, loss, metric, node_level, bn_train_mode)
+    host sync; ``bn_train_mode`` as in ``eval_step``, whose signature and
+    result ``step`` has."""
+    steps = [step(model, b, loss, metric, node_level, bn_train_mode)
              for b in batches]
     sums = {k: torch.stack([s[k] for s in steps]).double().sum(0).cpu()
             .numpy() for k in steps[0]}
@@ -247,7 +252,17 @@ class Trainer:
     one on every epoch whose validation metric is the best so far (the
     ``max_checkpoints`` best kept, and ``best.pt``).  ``cfg.profile_dir``
     gets a torch.profiler chrome trace of epoch 1's training (epoch 0's
-    when there is one epoch)."""
+    when there is one epoch).
+
+    ``mesh`` (parallel/mesh.Mesh) trains on its device over its process
+    group: ``parallel_mode`` "data" gives each rank its own member of
+    each group of batches (parallel/dp.py; resident epochs gather each
+    rank's column of the index array), "node" shards every batch's nodes
+    over the mesh's first axis (parallel/partition.py; never resident;
+    ``partition_plans`` {"pallas": {...}} or {"banded": {...}} attaches
+    the local plans at partition time, the loader collating COO).  Every
+    rank computes the same metrics; only rank 0 logs, writes checkpoints
+    and traces."""
 
     model: torch.nn.Module
     cfg: TrainConfig
@@ -263,9 +278,12 @@ class Trainer:
     max_checkpoints: int = 3
     device: str = "cuda"
     resident: str = "auto"
+    mesh: Optional[object] = None
+    parallel_mode: str = "data"
+    partition_plans: Optional[dict] = None
 
     def log(self, msg):
-        if self.logger:
+        if self.logger and (self.mesh is None or self.mesh.rank == 0):
             self.logger.info(msg)
 
     def fit(self, train_loader, val_loader=None, test_loader=None,
@@ -276,7 +294,12 @@ class Trainer:
         to the device and train.  Returns (model, results)."""
         from .checkpoint import CheckpointSaver, read_checkpoint
 
-        device = resolve_device(self.device)
+        mesh, node_mode = self.mesh, self.parallel_mode == "node"
+        if mesh is not None and self.parallel_mode not in ("data", "node"):
+            raise ValueError(f"parallel_mode {self.parallel_mode!r}")
+        rank0 = mesh is None or mesh.rank == 0
+        device = resolve_device(str(mesh.device) if mesh is not None
+                                else self.device)
         seed = self.cfg.seed if seed is None else seed
         model = init_parameters(self.model, seed)
         warm = (read_checkpoint(self.cfg.load_path) if self.cfg.load_path
@@ -289,13 +312,39 @@ class Trainer:
         if warm is not None:
             opt.load_state_dict(warm["opt"])
             self.log(f"warm start from {self.cfg.load_path}")
-        generator = torch.Generator(device=device).manual_seed(seed)
+        # this rank's view of a loader and its steps; data mode folds the
+        # rank into the dropout seed, node mode keeps one generator on
+        # every rank (parallel/partition.py)
+        gen_seed, wrap = seed, None
+        train_step_fn, eval_step_fn = train_step, eval_step
+        if mesh is not None and node_mode:
+            from ..parallel.partition import (PartitionedLoader,
+                                              make_sharded_eval_step,
+                                              make_sharded_train_step)
+            axis = mesh.axis_names[0]
+            wrap = functools.partial(
+                PartitionedLoader, n_shards=mesh.axis_size(axis),
+                rank=mesh.axis_index(axis), group=mesh.group(axis),
+                node_level=self.node_level, **(self.partition_plans or {}))
+            train_step_fn = make_sharded_train_step(mesh, axis)
+            eval_step_fn = make_sharded_eval_step(mesh, axis)
+        elif mesh is not None:
+            from ..parallel.dp import (ShardStream, make_parallel_eval_step,
+                                       make_parallel_train_step, rank_seed)
+            gen_seed = rank_seed(seed, mesh.rank)
+            wrap = functools.partial(ShardStream, n_shards=mesh.size,
+                                     index=mesh.rank)
+            train_step_fn = make_parallel_train_step(mesh)
+            eval_step_fn = make_parallel_eval_step(mesh)
+        generator = torch.Generator(device=device).manual_seed(gen_seed)
         cached: Dict[int, list] = {}
 
         def on_device(loader):
             return (b.to(device) for b in loader)
 
         use_resident, why = resident_rule(self.resident, train_loader)
+        if use_resident and mesh is not None and node_mode:
+            use_resident, why = False, "--parallel node is never resident"
         stores: Dict[int, object] = {}
         if use_resident:
             from .resident import (build_banded_store, build_coo_store,
@@ -336,11 +385,21 @@ class Trainer:
                 stores[id(loader)] = store
                 return store
             train_store = store_for(train_loader)
-            resident_epoch = make_resident_train_epoch(
-                model, opt, self.loss, self.node_level)
-            resident_eval = make_resident_eval(
-                model, self.loss, self.node_level, self.eval_metric,
-                self.bn_train_mode_eval)
+            if mesh is not None:
+                from .resident import (make_parallel_resident_eval,
+                                       make_parallel_resident_train_epoch,
+                                       parallel_epoch_index_chunks)
+                resident_epoch = make_parallel_resident_train_epoch(
+                    model, opt, mesh, self.loss, self.node_level)
+                resident_eval = make_parallel_resident_eval(
+                    model, mesh, self.loss, self.node_level,
+                    self.eval_metric, self.bn_train_mode_eval)
+            else:
+                resident_epoch = make_resident_train_epoch(
+                    model, opt, self.loss, self.node_level)
+                resident_eval = make_resident_eval(
+                    model, self.loss, self.node_level, self.eval_metric,
+                    self.bn_train_mode_eval)
             self.log(f"resident store: {len(train_loader.graphs)} graphs "
                      f"on {device}, {train_store.nbytes()} B, "
                      f"{train_loader.mode} slots of {train_store.n_slot} "
@@ -348,28 +407,42 @@ class Trainer:
         elif getattr(train_loader, "mode", None) in ("dense", "coo",
                                                      "banded"):
             self.log(f"per-batch epochs ({why})")
+        if mesh is not None:
+            self.log(f"{self.parallel_mode}-parallel over {mesh.size} ranks "
+                     f"({mesh.backend}, mesh "
+                     f"{dict(zip(mesh.axis_names, mesh.shape))}), rank 0 "
+                     f"on {device}")
+
+        def chunks(order, batch_size, pad_idx):
+            if mesh is not None:
+                return parallel_epoch_index_chunks(order, batch_size,
+                                                   mesh.size, pad_idx)
+            return epoch_index_chunks(order, batch_size, pad_idx)
 
         def run_eval(loader):
             if use_resident and getattr(loader, "mode", None) \
                     == train_loader.mode:
                 store = store_for(loader)
-                return resident_eval(store, epoch_index_chunks(
+                return resident_eval(store, chunks(
                     np.arange(len(loader.graphs)), loader.batch_size,
                     store.num_graphs))
             if id(loader) not in cached:        # eval batches stay resident
-                cached[id(loader)] = list(on_device(loader))
+                cached[id(loader)] = list(on_device(
+                    loader if wrap is None else wrap(loader)))
             return evaluate(model, cached[id(loader)], self.loss,
                             self.eval_metric, self.node_level,
-                            self.bn_train_mode_eval)
+                            self.bn_train_mode_eval, step=eval_step_fn)
 
         def run_train():
             if not use_resident:
-                return train_epoch(model, opt, on_device(train_loader),
-                                   self.loss, generator, self.node_level)
+                stream = train_loader if wrap is None else wrap(train_loader)
+                return train_epoch(model, opt, on_device(stream), self.loss,
+                                   generator, self.node_level,
+                                   step=train_step_fn)
             G = len(train_loader.graphs)
             order = (train_loader.rng.permutation(G)
                      if train_loader.shuffle else np.arange(G))
-            return resident_epoch(train_store, epoch_index_chunks(
+            return resident_epoch(train_store, chunks(
                 order, train_loader.batch_size, train_store.num_graphs),
                 generator)
 
@@ -382,7 +455,7 @@ class Trainer:
         if ckpt_dir is None and self.cfg.save_checkpoints \
                 and self.cfg.save_dir:
             ckpt_dir = os.path.join(self.cfg.save_dir, "checkpoints")
-        saver = (None if ckpt_dir is None else CheckpointSaver(
+        saver = (None if ckpt_dir is None or not rank0 else CheckpointSaver(
             ckpt_dir, self.max_checkpoints, maximize_metric=maximize,
             logger=self.logger))
         # trace the second epoch (past warm-up); the first if there is
@@ -397,7 +470,8 @@ class Trainer:
         for epoch in range(self.cfg.num_epochs):
             try:
                 t0 = time.time()
-                if self.cfg.profile_dir and epoch == profile_epoch:
+                if (self.cfg.profile_dir and epoch == profile_epoch
+                        and rank0):
                     from ..utils.profiling import trace
                     with trace(self.cfg.profile_dir,
                                cuda=device.type == "cuda"):

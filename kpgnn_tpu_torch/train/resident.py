@@ -13,7 +13,10 @@ the epoch as one ``lax.scan``; here the steps are eager, and their
 static shapes (every batch of a store has the same tensors) are what a
 CUDA graph of the step would need.
 
-The multi-device variants are not ported yet (ROADMAP.md, Queue 1).
+Data-parallel resident epochs (``make_parallel_resident_train_epoch``):
+every rank holds the whole store and, at each step, gathers its own
+column of the (steps, P, B) index array and takes the data-parallel step
+(parallel/dp.py) on it; the only per-epoch traffic is the index array.
 """
 from __future__ import annotations
 
@@ -522,6 +525,15 @@ def epoch_index_chunks(order: np.ndarray, batch_size: int,
     return out.reshape(steps, batch_size)
 
 
+def parallel_epoch_index_chunks(order: np.ndarray, batch_size: int,
+                                n_dev: int, pad_idx: int) -> np.ndarray:
+    """(steps, n_dev, B) int32 chunks; the trailing partial group padded
+    with the empty-graph slot (the resident twin of shard_loader's
+    masked-empty fill: every graph is seen, none twice)."""
+    flat = epoch_index_chunks(order, batch_size * n_dev, pad_idx)
+    return flat.reshape(flat.shape[0], n_dev, batch_size)
+
+
 def _rows(store, chunks) -> torch.Tensor:
     """The index chunks on the store's device, as one copy."""
     return torch.as_tensor(np.asarray(chunks), dtype=torch.long).to(
@@ -549,4 +561,40 @@ def make_resident_eval(model, loss: str = "l1", node_level: bool = False,
         return evaluate(model, (gather_any(store, idx) for idx in
                                 _rows(store, idx_chunks)),
                         loss, metric, node_level, bn_train_mode)
+    return run
+
+
+def make_parallel_resident_train_epoch(model, opt, mesh, loss: str = "l1",
+                                       node_level: bool = False, axes=None):
+    """Data-parallel resident epoch: (store, idx_chunks (S, P, B),
+    generator) -> (mean train loss, per-step losses) over the group; each
+    step gathers this rank's column (its index along ``axes``) and takes
+    ``dp.parallel_train_step``."""
+    from ..parallel.dp import make_parallel_train_step
+
+    step = make_parallel_train_step(mesh, axes)
+    me = mesh.axis_index(axes)
+
+    def epoch(store, idx_chunks, generator=None):
+        return train_epoch(model, opt, (gather_any(store, idx) for idx in
+                                        _rows(store, idx_chunks)[:, me]),
+                           loss, generator, node_level, step=step)
+    return epoch
+
+
+def make_parallel_resident_eval(model, mesh, loss: str = "l1",
+                                node_level: bool = False,
+                                metric: str = "same",
+                                bn_train_mode: bool = False, axes=None):
+    """(store, idx_chunks (S, P, B)) -> the metrics over every rank's
+    gathered batches (the sums all-reduced over the group)."""
+    from ..parallel.dp import make_parallel_eval_step
+
+    step = make_parallel_eval_step(mesh, axes)
+    me = mesh.axis_index(axes)
+
+    def run(store, idx_chunks):
+        return evaluate(model, (gather_any(store, idx) for idx in
+                                _rows(store, idx_chunks)[:, me]),
+                        loss, metric, node_level, bn_train_mode, step=step)
     return run

@@ -384,22 +384,21 @@ def test_plain_plan_refuses_kpgcn():
 
 
 def test_cli_takes_the_banded_backend_and_refuses_max_on_it():
-    """``--backend banded`` passes ``check_ported`` (only ``--parallel``
-    is refused); KPGCN's loader gets the gcn_norm plan; ``--aggr max``
-    exits as in the JAX CLI."""
+    """``--backend banded``: KPGCN's loader gets the gcn_norm plan;
+    ``--aggr max`` exits as in the JAX CLI; under ``--parallel node`` the
+    loader collates COO and the banded plan attaches at partition time,
+    as in the JAX CLI."""
     from kpgnn_tpu_torch.scripts import common
 
     p = common.base_parser("banded")
     mcfg = ModelConfig(**dict(FLAGSHIP_SMALL, model_name="KPGCN",
                               hidden_size=12, num_layer=3))
     args = p.parse_args(["--backend", "banded", "--model_name", "KPGCN"])
-    common.check_ported(args)
     assert common.loader_kwargs(args, mcfg) == {
         "mode": "banded", "v1": 5, "vk": 11, "banded_gcn_norm": True}
     with pytest.raises(SystemExit, match="--aggr max is not available on "
                        "the banded backend"):
         common.loader_kwargs(p.parse_args(["--backend", "banded", "--aggr",
                                            "max"]), mcfg)
-    with pytest.raises(NotImplementedError, match="--parallel node"):
-        common.check_ported(p.parse_args(["--backend", "banded",
-                                          "--parallel", "node"]))
+    node = p.parse_args(["--backend", "banded", "--parallel", "node"])
+    assert common.loader_kwargs(node, mcfg) == {"mode": "coo"}

@@ -272,3 +272,62 @@ def test_isolation_checks_cover_the_banded_and_data_modules():
     from kpgnn_tpu_torch.prep.device import device_khop_dense
     assert BandedAdj.__module__ == "kpgnn_tpu_torch.ops.banded"
     assert device_khop_dense.__module__ == "kpgnn_tpu_torch.prep.device"
+
+
+def test_isolation_checks_cover_the_parallel_modules():
+    """The process-group mesh, the data-parallel, node-sharded and
+    multi-host steps and the sharded adjacency are among the sources both
+    isolation checks read and import."""
+    sources = {os.path.relpath(p, REPO) for p in port_sources()}
+    for mod in ("parallel/__init__.py", "parallel/mesh.py",
+                "parallel/dp.py", "parallel/partition.py",
+                "parallel/multihost.py", "ops/sharded_adjacency.py"):
+        assert os.path.join("kpgnn_tpu_torch", mod) in sources, mod
+    from kpgnn_tpu_torch.ops.sharded_adjacency import ShardedCOOAdj
+    from kpgnn_tpu_torch.parallel.mesh import Mesh
+    assert ShardedCOOAdj.__module__ == "kpgnn_tpu_torch.ops.sharded_adjacency"
+    assert Mesh.__module__ == "kpgnn_tpu_torch.parallel.mesh"
+
+
+def _rank_modules(rank, world):
+    """A spawned rank's halo exchange and all-reduce, then the JAX-side
+    modules its process holds."""
+    import numpy as np
+    from kpgnn_tpu_torch.ops.adjacency import COOAdj
+    from kpgnn_tpu_torch.ops.sharded_adjacency import (all_reduce_sum,
+                                                       halo_exchange)
+    from kpgnn_tpu_torch.parallel.mesh import make_mesh
+    from kpgnn_tpu_torch.parallel.partition import partition_adj
+
+    mesh = make_mesh(("node",))
+    recv = np.arange(8, dtype=np.int32)
+    adj = COOAdj(senders=torch.from_numpy((recv + 3) % 8),
+                 receivers=torch.from_numpy(recv),
+                 edge_attr=torch.ones(8, 1, dtype=torch.int32),
+                 edge_mask=torch.ones(8, dtype=torch.bool), n_nodes=8)
+    shard = partition_adj(adj, world, rank, mesh.group("node"))
+    x = torch.arange(4.0) + 4 * rank
+    ext = halo_exchange(shard, x[:, None])
+    total = all_reduce_sum(x.sum(), mesh.group("node"))
+    return (ext[:, 0].tolist(), float(total),
+            sorted(m for m in sys.modules if m.split(".")[0] in BANNED))
+
+
+def test_spawned_rank_imports_no_jax():
+    """Two spawned gloo ranks run the halo exchange and an all-reduce:
+    each extended table holds its own rows and the rows its edges read
+    from the other rank, and neither process imported JAX or the JAX
+    package."""
+    from kpgnn_tpu_torch.parallel.mesh import spawn
+
+    out = spawn(_rank_modules, 2, "gloo")
+    for rank, (ext, total, banned) in enumerate(out):
+        assert banned == [], banned
+        assert total == sum(range(8))
+        own = [4.0 * rank + i for i in range(4)]
+        assert ext[:4] == own
+        # rank r's receivers 4r..4r+3 read senders 4r+3..4r+6 (mod 8):
+        # the other rank's first three rows
+        other = [4.0 * (1 - rank) + i for i in range(3)]
+        assert len(ext) == 4 + 2 * 3
+        assert ext[4 + 3 * (1 - rank):][:3] == other

@@ -260,16 +260,28 @@ def test_train_zinc_main_on_the_coo_backend(tmp_path):
                                    "banded"],
                                   ["--parallel"]])
 def test_train_zinc_refuses_unported_options(tmp_path, flag):
-    """Only --parallel is refused, under any mode and with any backend
-    (the banded backend, checkpoints and --profile_dir are ported:
-    test_train_zinc_on_the_banded_backend below,
-    tests/test_torch_train_utils.py, tests/test_torch_observability.py)."""
+    """No option is refused any more: --parallel, in either mode and with
+    the kernel plan or the banded backend, trains (a group of one in this
+    process) and its first step equals the run without it (rtol 1e-4;
+    the multi-rank runs: tests/test_torch_parallel_*.py)."""
+    import torch.distributed as dist
     from kpgnn_tpu_torch.scripts import train_zinc
 
-    base = ["--dataset_dir", str(tmp_path), "--save_dir",
-            str(tmp_path / "s"), "--device", "cpu", "--backend", "pallas"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_zinc.main(base + flag + TINY_ARGS)
+    write_zinc_fixture(str(tmp_path), (24, 8, 8))
+    backend = ["--backend", "pallas"] if "--backend" not in flag else []
+    first = []
+    for extra in (flag, []):
+        rows = []
+        try:
+            train_zinc.main(
+                ["--dataset_dir", str(tmp_path), "--save_dir",
+                 str(tmp_path / "s"), "--device", "cpu"] + backend + extra
+                + TINY_ARGS, epoch_callback=lambda e, m, row: rows.append(row))
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        first.append(rows[0]["step_losses"][0])
+    np.testing.assert_allclose(first[0], first[1], rtol=1e-4)
 
 
 @pytest.mark.parametrize("bf16", [False, True])
