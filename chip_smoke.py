@@ -213,6 +213,25 @@ Phases, each of which fails the run loudly:
      K*n_local rows over K*n_ext sender rows, backward the transpose,
      whose rows_per_hop is n_ext; gather and fused, and the flagship
      shard's first hop window), and the time section times them.
+ 13. tools — run after 12: [tools] ``tune_pallas.main`` at its defaults
+     (K=8 D=104, 64 synthetic molecules) and at TU's width (--K 2
+     --hidden_size 16): a JSON row per point (the gather and the fused
+     form on the one batch) with positive rates, and the best;
+     ``scaling_estimate.main(["--mode", "both", "--ranks", "1,2,4"])``
+     (the JAX script's 1,2,4,8 cut for the smoke's time): every weak row
+     names its backend (NCCL at P=1, gloo ranks sharing cuda:0 above) and
+     the card, and the link projection's halo, boundary, union-edge, comm
+     and psum numbers equal a direct ``partition_adj`` of the same
+     65,536-node polymer; ``make_parity_golden --all`` on the card (under
+     deterministic algorithms: the bundles aggregate on COO, whose card
+     atomics sum in a varying order) and on the CPU: each card bundle
+     replays on the card within 1e-6, holds the
+     CPU bundle's parameters bit for bit and its activations within atol
+     1e-5 / rtol 1e-4.  The launch counts, set to 0 before each script
+     and read after it, must show the gather and the fused form at each
+     tune_pallas width and in the ici mode at D=104.  Phase 2 holds the
+     kernel against its plain version on those three plans, and the time
+     section times them.
 The last lines are the card's name and power limit, a ``kernels`` JSON
 line, and ``{"ok": true, "device": {...}}``.  The ``kernels`` line has one
 entry per kernel variant, timed on the flagship plan, with the launches
@@ -228,8 +247,12 @@ that takes that shape, its error, times and bound; the node legs'
 rectangular plans (the flagship shard at D=104, the polymer shards at
 P=2 and P=4 at D=34) with the launches of their kernel-plan legs summed
 over the ranks; and the bf16 variants on the flagship plan with the
---bf16 run's launches.  The first entries' launches also count the
-multi-rank legs and the --parallel runs.
+--bf16 run's launches; then the fused form and the gather (both over
+the forward CSR) on each plan of [tools], with the launches of the
+script that takes it (tune_pallas at D=104 and D=16, scaling_estimate's
+ici mode at D=104), counted apart from every other entry.  The first
+entries' launches also count the multi-rank legs and the --parallel
+runs.
 
 Tolerances: f32 gather vs plain version atol 1e-5, except the hub row,
 whose 10k-term sums may differ in summation order by up to 1e-6 of the
@@ -265,6 +288,7 @@ branch differs must lie within 1e-4 of its call's largest |input| of 0.
 """
 import contextlib
 import importlib.util
+import io
 import json
 import math
 import os
@@ -2509,6 +2533,196 @@ def parallel_scripts_phase(ctx):
     return out
 
 
+# tune_pallas runs of [tools]: the JAX tuner's defaults (K=8 D=104, the
+# flagship's widths) and TU-narrow, each at its default points (the gather
+# and the fused form on one 64-molecule batch)
+TUNE_RUNS = {"defaults": [], "tu": ["--K", "2", "--hidden_size", "16"]}
+SCALING_RANKS = "1,2,4"     # the JAX script's 1,2,4,8, cut for the time
+
+
+def tool_plans(dev):
+    """The kernel plans [tools] launches on, each with its row width D:
+    tune_pallas's batch at each TUNE_RUNS width (its 64 synthetic
+    molecules at K hops) and scaling_estimate's ici-mode polymer (the
+    1/8-size polymer of its link projection, D=104).  Returns {label:
+    (plan on dev, D)}."""
+    from kpgnn_tpu_torch.data.synthetic import (synthetic_molecules,
+                                                synthetic_polymers)
+    from kpgnn_tpu_torch.graph.batch import collate_pallas
+    from kpgnn_tpu_torch.prep.khop import KHopConfig
+    from kpgnn_tpu_torch.scripts import scaling_estimate as se
+    from kpgnn_tpu_torch.scripts import tune_pallas as tp
+
+    out = {}
+    for label, argv in TUNE_RUNS.items():
+        a = dict(zip(argv[::2], argv[1::2]))
+        K, D = int(a.get("--K", 8)), int(a.get("--hidden_size", 104))
+        graphs = synthetic_molecules(64, KHopConfig(
+            K=K, kernel="spd", max_edge_attr_num=30, max_hop_num=6,
+            max_edge_type=3, max_edge_count=20, max_distance_count=30),
+            seed=0)
+        out[f"tune_pallas {label}"] = (collate_pallas(
+            graphs, v1=tp.V1, vk=tp.VK).adj.to(dev), D)
+    poly = synthetic_polymers(1, 65536 // 8, K=3, seed=0)
+    out["scaling_estimate ici"] = (collate_pallas(
+        poly, v1=se.V1, vk=se.VK).adj.to(dev), 104)
+    return out
+
+
+def tune_phase(ctx):
+    """[tools] tune_pallas: ``tune_pallas.main`` at its defaults (K=8
+    D=104) and at TU's width (--K 2 --hidden_size 16): a row per point
+    (the gather and the fused form on the 64-molecule batch) with
+    positive rates, and the best.  Returns {label: rows}."""
+    from kpgnn_tpu_torch.scripts import tune_pallas
+
+    out = {}
+    for label, argv in TUNE_RUNS.items():
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rows = tune_pallas.main(argv)
+        check(list(rows) == ["gather/64", "fused/64"] and all(
+            r["fwd_edges_per_s"] > 0 and r["fwdbwd_edges_per_s"] > 0
+            for r in rows.values()), f"tune_pallas {argv}: {rows}")
+        out[label] = rows
+        log(f"[tools] tune_pallas {' '.join(argv) or '(defaults)'} "
+            f"({ctx.card}) in {time.perf_counter() - t0:.1f} s:\n"
+            + "\n".join(f"[tune_pallas] {x}"
+                        for x in buf.getvalue().splitlines()))
+    return out
+
+
+def scaling_phase(ctx):
+    """[tools] scaling_estimate: ``main(["--mode", "both", "--ranks",
+    SCALING_RANKS])``: every weak row names its backend (NCCL at P=1, the
+    card machine's one card; gloo ranks sharing cuda:0 above) and the
+    card, with a positive overhead factor; the link projection's halo,
+    boundary, union-edge, comm and psum numbers equal a direct
+    ``partition_adj`` of the same polymer here."""
+    import numpy as np
+    from kpgnn_tpu_torch.data.synthetic import synthetic_polymers
+    from kpgnn_tpu_torch.graph.batch import collate
+    from kpgnn_tpu_torch.parallel.partition import partition_adj
+    from kpgnn_tpu_torch.scripts import scaling_estimate as se
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = se.main(["--mode", "both", "--ranks", SCALING_RANKS])
+    secs = time.perf_counter() - t0
+    kind = ctx.torch.cuda.get_device_name(0)
+    for mode in ("data_parallel", "node_sharded"):
+        for P in SCALING_RANKS.split(","):
+            row = out[mode][P]
+            want = "nccl" if int(P) <= ctx.torch.cuda.device_count() \
+                else "gloo"
+            check(row["backend"] == want and row["device"] == kind
+                  and row["overhead_factor"] > 0,
+                  f"scaling_estimate {mode} P={P}: {row}")
+    link = out["ici_projection"]
+    coo = collate(synthetic_polymers(1, 65536, K=3, seed=0))
+    sh = partition_adj(coo.adj, 8, 0)
+    want = {"union_edges": int(np.asarray(coo.adj.edge_mask).sum()),
+            "halo_rows": sh.halo, "boundary_rows": sh.boundary_total(),
+            "comm_bytes_per_device_per_layer":
+                sh.comm_elems_per_layer(3, 104) * 4,
+            "full_table_psum_bytes_would_be":
+                sh.psum_elems_per_layer(3, 104) * 4}
+    got = {k: link[k] for k in want}
+    check(got == want, f"scaling_estimate link numbers {got} != the "
+          f"partition's {want}")
+    check(link["device"] == kind, f"link projection on {link['device']}")
+    log(f"[tools] scaling_estimate --mode both --ranks {SCALING_RANKS} "
+        f"({ctx.card}) in {secs:.1f} s; link numbers equal partition_adj's "
+        f"{want}:\n[scaling_estimate] " + json.dumps(out))
+    return out
+
+
+def parity_golden_phase(ctx):
+    """[tools] make_parity_golden: ``--all`` on the card and with
+    ``--device cpu`` into the scratch dir.  Each card bundle replays on
+    the card within 1e-6 (``replay_bundle``), holds the CPU bundle's keys,
+    its parameters bit for bit and its activations within atol 1e-5 /
+    rtol 1e-4.  The card's builds and replays run under deterministic
+    algorithms: the bundles' COO aggregation sums with atomics on the
+    card, in an order that varies from run to run, and a replay checks
+    that the bundle is reproducible."""
+    import numpy as np
+    from kpgnn_tpu_torch.scripts import make_parity_golden as mpg
+
+    torch = ctx.torch
+    dirs = {d: os.path.join(ctx.work, f"golden_{d}") for d in ("cuda", "cpu")}
+    buf = io.StringIO()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                contextlib.redirect_stdout(buf):
+            warnings.simplefilter("always")
+            card = mpg.main(["--all", "--out_dir", dirs["cuda"]])
+            replays = [mpg.replay_bundle(pc, device=ctx.dev) for pc in card]
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    nondet = sorted({str(w.message).split(".")[0][:90] for w in caught
+                     if "deterministic" in str(w.message)})
+    with contextlib.redirect_stdout(buf):
+        cpu = mpg.main(["--all", "--out_dir", dirs["cpu"], "--device",
+                        "cpu"])
+    check(len(card) == len(cpu) == len(mpg.CONFIGS),
+          f"make_parity_golden wrote {card} and {cpu}")
+    notes = []
+    for pc, pp, replay in zip(card, cpu, replays):
+        name = os.path.basename(pc)[:-4]
+        gc, gp = np.load(pc), np.load(pp)
+        check(set(gc.files) == set(gp.files),
+              f"golden {name}: card and CPU bundles hold other keys")
+        worst = 0.0
+        for k in gc.files:
+            a, b = gc[k], gp[k]
+            if k.startswith("act/") and np.issubdtype(b.dtype, np.floating):
+                np.testing.assert_allclose(
+                    a, b, atol=1e-5, rtol=1e-4,
+                    err_msg=f"golden {name} {k}: card against CPU")
+                worst = max(worst, float(np.abs(a - b).max()))
+            else:       # parameters, raw graph, meta, node mask: exact
+                check(a.dtype == b.dtype and np.array_equal(a, b),
+                      f"golden {name} {k}: card and CPU differ")
+        notes.append(f"{name} replay {replay:.1e} card-CPU {worst:.1e}")
+    log(f"[tools] make_parity_golden --all on the card and the CPU: "
+        f"{len(card)} bundles, parameters bitwise equal; ops without a "
+        f"deterministic implementation on the card: {nondet or 'none'}; "
+        f"max |diff| " + "; ".join(notes))
+    return card
+
+
+def tools_phase(ctx):
+    """13. [tools]: the three tool scripts on the card, the counts set to
+    0 before each and read after it.  tune_pallas must launch the gather
+    and the fused form at each of its widths, scaling_estimate's ici mode
+    both at D=104.  Returns {script: launches by (variant, D)}."""
+    spmm = ctx.spmm
+    out = {}
+    for name, phase in (("tune_pallas", tune_phase),
+                        ("scaling_estimate", scaling_phase),
+                        ("make_parity_golden", parity_golden_phase)):
+        spmm.reset_launch_counts()
+        phase(ctx)
+        out[name] = +Counter(spmm.gather_segment_sum.width_launches)
+        ctx.mark(f"tools {name}")
+    for label, (_, D) in ctx.tool_plans.items():
+        w = out[label.split()[0]]
+        check(w[ctx.fused_v, D] > 0 and w[ctx.gather_v, D] > 0,
+              f"[tools] {label} launched no {ctx.fused_v} or "
+              f"{ctx.gather_v} at D={D}: {dict(w)}")
+    log("[tools] launches by (variant, D): " + "; ".join(
+        f"{name} " + (", ".join(f"{v} D={d}: {n}" for (v, d), n in
+                                sorted(w.items())) or "none")
+        for name, w in out.items()))
+    return out
+
+
 def main():
     import torch
 
@@ -2788,6 +3002,13 @@ def main():
                 f"{sp.fwd.rows_per_hop} / {sp.bwd.rows_per_hop}), "
                 f"{sp.fwd.senders.shape[0]} live hop edges; rows up to the "
                 f"last live one per hop {sp.fwd.hop_live}")
+        # the plans [tools] launches on: tune_pallas's batches and
+        # scaling_estimate's ici-mode polymer
+        tplans = tool_plans(dev)
+        for label, (tp, d) in tplans.items():
+            log(f"[plan] {label} (K={tp.K}, D={d}): {tp.fwd.n_rows} rows, "
+                f"{tp.fwd.senders.shape[0]} live hop edges; rows up to the "
+                f"last live one per hop {tp.fwd.hop_live}")
 
         def collate_ms(loader):
             ts = []
@@ -3068,6 +3289,9 @@ def main():
                 shape="shard flagship P=2")
         compare_fused("shard flagship P=2 k=1", sp1, H, VK=VK,
                       shape="shard flagship P=2")
+        for label, (tp, d) in tplans.items():
+            compare(label, tp.fwd, tp.bwd, d, shape=label)
+            compare_fused(label, tp, d, VK=hop_k_rows(tp), shape=label)
 
         # determinism: three launches of every variant on one input, each
         # on the CSR where the main path launches it
@@ -3702,6 +3926,10 @@ def main():
         mark("parallel")
         pscript_w = parallel_scripts_phase(ctx)
         mark("parallel scripts")
+        # ---- 13. the tool scripts: tune_pallas, scaling_estimate,
+        # make_parity_golden ----
+        ctx.mark, ctx.card, ctx.tool_plans = mark, card, tplans
+        tools_w = tools_phase(ctx)
         # ---- 9. times, on the flagship k=8 plan ----
         def sparse(c, dtype):
             n_e = c.senders.shape[0]
@@ -3929,6 +4157,10 @@ def main():
         # ---- the banded aggregation beside the kernel path ----
         banded_times(ctx, gathered)
         mark("time banded")
+        # ---- the plans of [tools] ----
+        tool_t = {label: shape_times(tp, d, label, hop_k_rows(tp))[2]
+                  for label, (tp, d) in tplans.items()}
+        mark("time tool plans")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4031,6 +4263,16 @@ def main():
             shape=f"flagship k={K} plan, D={H}, --bf16", launches=bf16_w[
                 vname, H], max_abs_err=errs_w[vname, H], ms=ms,
             plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib))
+    # the plans of [tools], each with the launches of the script that
+    # takes it (kept out of the entries above): the fused form over fwd,
+    # the gather over fwd (tune_pallas's bare kernel; both scripts also
+    # launch it over bwd, in their backward)
+    for label, (tp, d) in tplans.items():
+        w = tools_w[label.split()[0]]
+        for vname, what in ((fused_v, "fwd"), (gather_v, "fwd")):
+            entries.append(new_entry(
+                vname, d, f"{label} k={tp.K} plan, timed over {what}", label,
+                tool_t[label][vname, what], w))
     log("[phases] seconds: " + ", ".join(
         f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks, marks[1:]))
         + f"; total {marks[-1][1] - marks[0][1]:.1f}")

@@ -8,6 +8,12 @@ separators, then ``__call__`` (``embedding_model/gnn0/__call__``; the
 model itself is ``__call__``).  A module that returns a tuple (an LSTM)
 is keyed by its first element; outputs that are not tensors are skipped.
 ``dump_activations`` writes them to an ``.npz``.
+
+``jax_layout=True`` gives the JAX capture's layout, what a golden bundle
+stores: a ``BiLSTM`` called time-major (the hop-major combine's attention
+LSTM, (K, N, 2H)) is transposed back to the JAX module's node-major
+(N, K, 2H), and no module inside a ``BiLSTM`` (the ``torch.nn.LSTM``
+holding its weights) is captured.
 """
 from __future__ import annotations
 
@@ -16,26 +22,35 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..ops.lstm import BiLSTM
+
 
 def _key(name: str) -> str:
     return "/".join(name.split(".") + ["__call__"]) if name else "__call__"
 
 
 @torch.no_grad()
-def capture_activations(model: torch.nn.Module, batch
-                        ) -> Dict[str, np.ndarray]:
+def capture_activations(model: torch.nn.Module, batch,
+                        jax_layout: bool = False) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
 
     def hook(name):
-        def record(module, args, output):
+        def record(module, args, kwargs, output):
             if isinstance(output, (tuple, list)) and output:
                 output = output[0]
-            if torch.is_tensor(output):
-                out[_key(name)] = output.detach().float().cpu().numpy()
+            if not torch.is_tensor(output):
+                return
+            if (jax_layout and isinstance(module, BiLSTM)
+                    and kwargs.get("time_major", False)):
+                output = output.transpose(0, 1)
+            out[_key(name)] = output.detach().float().cpu().numpy()
         return record
 
-    handles = [m.register_forward_hook(hook(n))
-               for n, m in model.named_modules()]
+    lstms = [n for n, m in model.named_modules() if isinstance(m, BiLSTM)]
+    handles = [m.register_forward_hook(hook(n), with_kwargs=True)
+               for n, m in model.named_modules()
+               if not (jax_layout and any(n.startswith(p + ".")
+                                          for p in lstms))]
     try:
         model(batch, train=False)
     finally:

@@ -331,3 +331,43 @@ def test_spawned_rank_imports_no_jax():
         other = [4.0 * (1 - rank) + i for i in range(3)]
         assert len(ext) == 4 + 2 * 3
         assert ext[4 + 3 * (1 - rank):][:3] == other
+
+
+def test_isolation_checks_cover_the_tool_scripts():
+    """The three tool scripts (the kernel's plan-shape sweep, the scaling
+    estimate, the golden-bundle writer) and what they added to convert
+    and parity are among the sources both isolation checks read and
+    import."""
+    sources = {os.path.relpath(p, REPO) for p in port_sources()}
+    for mod in ("scripts/tune_pallas.py", "scripts/scaling_estimate.py",
+                "scripts/make_parity_golden.py", "utils/convert.py",
+                "utils/parity.py"):
+        assert os.path.join("kpgnn_tpu_torch", mod) in sources, mod
+    from kpgnn_tpu_torch.scripts import make_parity_golden
+    from kpgnn_tpu_torch.utils.convert import params_to_flax
+    assert params_to_flax.__module__ == "kpgnn_tpu_torch.utils.convert"
+    # bundles go under the port, never into the JAX package's goldens
+    assert "``kpgnn_tpu_torch/data/parity_golden``" in (
+        make_parity_golden.__doc__)
+
+
+@pytest.mark.parametrize("script,argv", [
+    ("tune_pallas", ["--batch_size", "2"]),
+    ("scaling_estimate", ["--mode", "ici", "--n_nodes", "256"]),
+    ("scaling_estimate", ["--mode", "weak", "--ranks", "1"]),
+    ("make_parity_golden", ["--all"])])
+def test_tool_scripts_without_cuda_raise(tmp_path, monkeypatch, script,
+                                         argv):
+    """The default device is cuda: without CUDA each tool script raises
+    before it builds, spawns or writes anything; --device cpu runs
+    (tests/test_torch_{tune_pallas,scaling_estimate,parity_golden}.py)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    import importlib
+    mod = importlib.import_module(f"kpgnn_tpu_torch.scripts.{script}")
+    monkeypatch.chdir(tmp_path)
+    if script == "make_parity_golden":
+        argv = argv + ["--out_dir", str(tmp_path / "s")]
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        mod.main(argv)
+    assert not any(tmp_path.iterdir())
