@@ -23,7 +23,12 @@ Phases, each of which fails the run loudly:
      the scalar variant in each direction.  Then three repeated launches of
      every variant on one input must be bit-identical (the gather over the
      backward CSR, the fused form over the forward one, as the main path
-     runs them);
+     runs them).  Then the CARD_TESTS files in a pytest process of their
+     own (``kernel_tests``: the JAX package's heavy-row, hub,
+     multi-window and graph-sorted cases, gather and fused, f32 and bf16,
+     forward and backward, against the plain version and bit for bit on
+     a repeat; and ``segment_sum``'s sums, the same in every run and the
+     CPU's where they are exact): exit 0 with more than 0 passed;
   3. train  — write a ZINC-format fixture (tools/make_zinc_fixture.py) and
      run ``kpgnn_tpu_torch.scripts.train_zinc.main`` at the flagship's
      full width (KPGINPlus K=8 L=8 H=104, attention combine, JK concat,
@@ -38,7 +43,22 @@ Phases, each of which fails the run loudly:
      card and within 5e-2 of the f32 run's, and f32 parameters and norm
      statistics after it; in one bf16 train step every linear map and
      LSTM of the K-hop layers returns bf16, and its profile shows
-     cuDNN's bf16 LSTM kernels and a bf16 GEMM.  Then resident epochs,
+     cuDNN's bf16 LSTM kernels and a bf16 GEMM.  Before ``--bf16``,
+     [api] (``api_phase``): the flagship at full width through the
+     package's top-level names only (kt.KHopConfig / kt.extract_khop ->
+     kt.GraphLoader(mode="pallas") -> kt.make_model(kt.ModelConfig) ->
+     kt.Trainer) for one epoch on the run's first 128 molecules: prep
+     equal to the script's, ``kt.train.count_parameters`` the JAX count
+     (FLAGSHIP_PARAMS), 2L fused + 2L gather launches, the first-step loss
+     the run's (rtol 1e-4), and the step on the card's clock; and
+     [determinism] (``determinism_phase``): the first DET_STEPS steps
+     twice from one seed must repeat bit for bit (graph-level
+     ``segment_sum`` is a one-hot product on the card); then twice in a
+     process under
+     ``torch.use_deterministic_algorithms(True, warn_only=True)`` with
+     CUBLAS_WORKSPACE_CONFIG=:4096:8, reported: the first differing step,
+     the largest loss and parameter differences, and the ops that warn of
+     no deterministic implementation.  Then resident epochs,
      one epoch each under deterministic algorithms: ``--backend coo``
      (``--resident auto``: the log shows the rule's decision, which must be
      ``resident_rule``'s), ``--resident off`` and ``--resident on``;
@@ -247,10 +267,11 @@ that takes that shape, its error, times and bound; the node legs'
 rectangular plans (the flagship shard at D=104, the polymer shards at
 P=2 and P=4 at D=34) with the launches of their kernel-plan legs summed
 over the ranks; and the bf16 variants on the flagship plan with the
---bf16 run's launches; then the fused form and the gather (both over
-the forward CSR) on each plan of [tools], with the launches of the
-script that takes it (tune_pallas at D=104 and D=16, scaling_estimate's
-ici mode at D=104), counted apart from every other entry.  The first
+--bf16 run's launches; the same for the [api] run's launches; then the
+fused form and the gather (both over the forward CSR) on each plan of
+[tools], with the launches of the script that takes it (tune_pallas at
+D=104 and D=16, scaling_estimate's ici mode at D=104), counted apart
+from every other entry.  The first
 entries' launches also count the multi-rank legs and the --parallel
 runs.
 
@@ -330,6 +351,10 @@ GENERATED = {
 # CPU and on --backend coo on the card: bf16 keeps 8 mantissa bits and
 # each side rounds after its own summation order
 BF16_RTOL = 1e-2
+# the flagship's parameter count: the JAX package's count_parameters of
+# its flax tree (tests/test_torch_api.py holds the port's equal to it)
+FLAGSHIP_PARAMS = 529675
+DET_STEPS = 5                  # [determinism]: the flagship's first steps
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM data sheet, f32 outside the MMA
 KERNEL = dict(route="cuda",
@@ -2723,6 +2748,201 @@ def tools_phase(ctx):
     return out
 
 
+CARD_TESTS = ("tests/test_torch_kernel_cuda.py",
+              "tests/test_torch_segment_cuda.py")
+
+
+def kernel_tests():
+    """The CARD_TESTS files in a pytest process of their own (without the
+    JAX package's conftest and the xdist options): its exit code, passed
+    count, summary line and output."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         "--noconftest", "-o", "addopts=", *CARD_TESTS],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    summary = lines[-1] if lines else ""
+    m = re.search(r"(\d+) passed", summary)
+    return (proc.returncode, int(m.group(1)) if m else 0, summary,
+            proc.stdout[-3000:] + proc.stderr[-2000:])
+
+
+def det_steps(torch, mcfg, batches, dev):
+    """``len(batches)`` Adam steps of the model ``mcfg`` from SEED on
+    ``dev``: the losses and the parameters after them (flat, on the
+    CPU)."""
+    from kpgnn_tpu_torch.models.factory import make_model
+    from kpgnn_tpu_torch.nn.inits import init_parameters
+    from kpgnn_tpu_torch.train.loop import train_step
+    from kpgnn_tpu_torch.train.state import make_optimizer
+
+    model = init_parameters(make_model(mcfg), SEED).to(dev)
+    opt = make_optimizer(model.parameters(), 1e-3)
+    losses = []
+    for b in batches:
+        lsum, cnt = train_step(model, opt, b.to(dev))
+        losses.append(float(lsum / cnt))
+    return losses, torch.cat([p.detach().flatten().cpu()
+                              for p in model.parameters()])
+
+
+def det_compare(runs):
+    """(the first step whose losses differ, 1-based, or None; |loss
+    difference| per step; the largest |parameter difference| after the
+    steps) of two ``det_steps`` runs."""
+    (la, pa), (lb, pb) = runs
+    diffs = [abs(a - b) for a, b in zip(la, lb)]
+    first = next((i + 1 for i, d in enumerate(diffs) if d), None)
+    return first, diffs, float((pa - pb).abs().max())
+
+
+def det_text(first, diffs, dparam):
+    return (f"first differing step {first or 'none'}, |loss diff| per "
+            f"step " + ", ".join(f"{d:.3e}" for d in diffs)
+            + f", max |param diff| after them {dparam:.3e}")
+
+
+def determinism_child(path):
+    """The [determinism] steps of the batches pickled at ``path`` (with
+    the model config and the device), twice under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` (run with
+    CUBLAS_WORKSPACE_CONFIG set); prints one JSON line: the comparison
+    and the ops that warn of no deterministic implementation."""
+    import torch
+    from kpgnn_tpu_torch.scripts.common import set_full_f32
+
+    with open(path, "rb") as f:
+        mcfg, batches, dev = pickle.load(f)
+    set_full_f32()
+    dev = torch.device(dev)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        det = det_compare([det_steps(torch, mcfg, batches, dev)
+                           for _ in range(2)])
+    torch.use_deterministic_algorithms(False)
+    warned = sorted({str(w.message).split(" does not have")[0]
+                     for w in caught if "deterministic" in str(w.message)})
+    print(json.dumps(dict(deterministic=det, warned=warned)))
+
+
+def api_phase(ctx):
+    """[api]: the flagship at full width through the top-level names only
+    (kt.KHopConfig / kt.extract_khop -> kt.GraphLoader -> kt.make_model(
+    kt.ModelConfig) -> kt.Trainer), one epoch on the [train] run's first
+    two batches: the prep equal to the script's, the config the
+    flagship's, count_parameters the JAX count, 2L fused + 2L gather
+    launches, the first-step loss [train]'s (rtol 1e-4), and the train
+    step on the card's clock.  Returns its launches by (variant, D)."""
+    import numpy as np
+    import kpgnn_tpu_torch as kt
+    from kpgnn_tpu_torch.train.loop import train_step
+    from kpgnn_tpu_torch.train.state import make_optimizer
+
+    torch, spmm, args, tl = ctx.torch, ctx.spmm, ctx.args, ctx.tl
+    fused_v, gather_v = ctx.fused_v, ctx.gather_v
+    order = np.arange(len(ctx.zinc_train))
+    np.random.default_rng(SEED).shuffle(order)      # the run's first epoch
+    idx = order[:2 * BATCH]
+    khop = kt.KHopConfig(
+        K=K, kernel="spd", max_edge_attr_num=args.max_pe_num,
+        max_hop_num=args.max_hop_num, max_edge_type=args.max_edge_type,
+        max_edge_count=args.max_edge_count,
+        max_distance_count=args.max_distance_count)
+    graphs = [kt.extract_khop(r["num_nodes"], r["edge_index"],
+                              r["edge_attr"], khop, x=r["x"], y=r["y"])
+              for r in (ctx.splits["train"][i] for i in idx)]
+    check(same_graphs(graphs, [ctx.zinc_train[i] for i in idx]),
+          "api: kt.extract_khop differs from the script's prep")
+    cfg = kt.ModelConfig(
+        model_name="KPGINPlus", hidden_size=H, num_layer=L, K=K,
+        combine="attention", aggr="add", JK="concat", residual=True,
+        num_hop1_edge=args.num_hop1_edge, max_pe_num=args.max_pe_num,
+        max_edge_type=args.max_edge_type, max_edge_count=args.max_edge_count,
+        max_hop_num=args.max_hop_num,
+        max_distance_count=args.max_distance_count,
+        input_encoder=("embedding", 21), task="graph_regression")
+    check(cfg == ctx.mcfg, f"api: {cfg} is not the flagship's {ctx.mcfg}")
+    loader = kt.GraphLoader(graphs, BATCH, mode="pallas",
+                            v1=cfg.num_hop1_edge + 2, vk=cfg.max_pe_num + 2,
+                            n_pad=tl.n_pad, e_pad=tl.e_pad)
+    model = kt.make_model(cfg)
+    n_params = kt.train.count_parameters(model)
+    check(n_params == FLAGSHIP_PARAMS, f"api: count_parameters {n_params} "
+          f"!= the flagship's {FLAGSHIP_PARAMS}")
+    rows = []
+    spmm.reset_launch_counts()
+    model, _ = kt.Trainer(
+        model, kt.TrainConfig(lr=args.lr, num_epochs=1, batch_size=BATCH,
+                              seed=SEED),
+        loss="l1", device=str(ctx.dev)).fit(
+            loader, seed=SEED,
+            epoch_callback=lambda e, m, row: rows.append(row))
+    torch.cuda.synchronize()
+    v = dict(spmm.gather_segment_sum.variant_launches)
+    w = +Counter(spmm.gather_segment_sum.width_launches)
+    losses = rows[0]["step_losses"]
+    expect = {fused_v: 2 * L, gather_v: 2 * L}
+    rel = abs(losses[0] - ctx.zloss) / abs(ctx.zloss)
+    # the step on the card's clock: CUDA events over 10 steps on the first
+    # batch, after 3
+    opt = make_optimizer(model.parameters(), args.lr)
+    batch = first_batch(loader).to(ctx.dev)
+    for _ in range(3):
+        train_step(model, opt, batch)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(10):
+        train_step(model, opt, batch)
+    ev[1].record()
+    torch.cuda.synchronize()
+    step_ms = ev[0].elapsed_time(ev[1]) / 10
+    log(f"[api] kt.extract_khop -> kt.GraphLoader(mode='pallas') -> "
+        f"kt.make_model(kt.ModelConfig) -> kt.Trainer: {len(idx)} "
+        f"molecules, {len(losses)} steps, losses "
+        + ", ".join(f"{x:.7f}" for x in losses)
+        + f"; first-step loss {losses[0]:.7f}, [train]'s {ctx.zloss:.7f} "
+        f"(rel diff {rel:.2e}); count_parameters {n_params}; kernel "
+        f"launches {v} (expected {expect}); train step {step_ms:.3f} ms "
+        f"(CUDA events, 10 steps)")
+    check(v == expect and set(w) <= {(fused_v, H), (gather_v, H)},
+          f"api: kernel launches {v} {dict(w)} != {expect}")
+    check(np.isfinite(losses).all() and rel <= 1e-4,
+          f"api: first-step loss {rel:.2e} from [train]'s > 1e-4")
+    return w
+
+
+def determinism_phase(ctx):
+    """[determinism]: the flagship's first DET_STEPS pallas steps twice
+    from one seed, which must repeat bit for bit; then, reported, twice
+    under deterministic algorithms in a process of its own
+    (``determinism_child``)."""
+    torch = ctx.torch
+    batches = first_batches(ctx.tl, DET_STEPS)
+    default = det_compare(
+        [det_steps(torch, ctx.mcfg, batches, ctx.dev) for _ in range(2)])
+    path = os.path.join(ctx.work, "det_batches.pkl")
+    with open(path, "wb") as f:
+        pickle.dump((ctx.mcfg, batches, str(ctx.dev)), f)
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import sys; sys.path.insert(0, {ROOT!r}); "
+         f"import chip_smoke; chip_smoke.determinism_child({path!r})"],
+        env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"),
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"determinism: the deterministic run "
+          f"failed:\n{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    det = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"[determinism] {DET_STEPS} flagship pallas steps twice from seed "
+        f"{SEED} (f32, TF32 off), default algorithms: {det_text(*default)}; "
+        f"in a process of its own, under use_deterministic_algorithms "
+        f"(CUBLAS_WORKSPACE_CONFIG=:4096:8): "
+        f"{det_text(*det['deterministic'])}, ops that warn of no "
+        f"deterministic implementation: {det['warned'] or 'none'}")
+    check(default[0] is None and default[2] == 0.0,
+          f"determinism: two runs of the same steps differ: "
+          f"{det_text(*default)}")
+
+
 def main():
     import torch
 
@@ -3321,6 +3541,14 @@ def main():
             f"{len(variants)} variants")
 
         mark("check")
+        # ---- 2b. the kernel's pytest cases, in a process of their own ----
+        t0 = time.perf_counter()
+        rc, passed, summary, out = kernel_tests()
+        log(f"[kernel tests] {' '.join(CARD_TESTS)}: {summary} "
+            f"(exit {rc}) in {time.perf_counter() - t0:.1f} s")
+        check(rc == 0 and passed > 0,
+              f"kernel tests: exit {rc}, {passed} passed:\n{out}")
+        mark("kernel tests")
         fused_v = spmm.variant_name(torch.float32, True, True)
         gather_v = spmm.variant_name(torch.float32, True, False)
 
@@ -3427,6 +3655,15 @@ def main():
         _, zlosses, _, path_w = script_phase("train", zinc, ("coo",))
 
         mark("train")
+        # ---- 3a. the public API; 3b. the steps repeat on the card ----
+        ctx = SimpleNamespace(
+            torch=torch, spmm=spmm, dev=dev, work=work, args=args,
+            splits=splits, zinc_train=zinc_train, tl=tl, mcfg=mcfg,
+            zloss=float(zlosses[0]), fused_v=fused_v, gather_v=gather_v)
+        api_w = api_phase(ctx)
+        mark("api")
+        determinism_phase(ctx)
+        mark("determinism")
         # ---- 3b. --bf16 on the main path: the kernel's bf16 variants ----
         fused_b = spmm.variant_name(torch.bfloat16, True, True)
         gather_b = spmm.variant_name(torch.bfloat16, True, False)
@@ -4262,6 +4499,15 @@ def main():
             name=f"{vname} D={H} bf16", **KERNEL,
             shape=f"flagship k={K} plan, D={H}, --bf16", launches=bf16_w[
                 vname, H], max_abs_err=errs_w[vname, H], ms=ms,
+            plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib))
+    # [api]: the flagship through the top-level names, its launches
+    # counted apart from the main path's entries
+    for vname in (fused_v, gather_v):
+        ms, plain, lib, bound, by = times[vname]
+        entries.append(dict(
+            name=f"{vname} D={H} api", **KERNEL,
+            shape=f"flagship k={K} plan, D={H}, through kt.Trainer",
+            launches=api_w[vname, H], max_abs_err=errs_w[vname, H], ms=ms,
             plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib))
     # the plans of [tools], each with the launches of the script that
     # takes it (kept out of the entries above): the fused form over fwd,

@@ -29,8 +29,8 @@ from ..nn.basic import MLP, TorchLinear
 from ..nn.encoders import FeatureConcatEncoder
 from ..nn.inits import normal_
 from ..nn.layers import GINEConv
-from ..nn.norms import (GraphSizeNorm, MaskedBatchNorm, MaskedGraphLayerNorm,
-                        MaskedInstanceNorm, PairNorm)
+from ..nn.norms import (MaskedBatchNorm, MaskedGraphLayerNorm, PairNorm,
+                        make_norm)
 from ..ops.adjacency import hop_major_native
 from ..ops.lstm import BiLSTM
 from ..ops.segment import segment_sum
@@ -50,17 +50,10 @@ def _dropout(x: torch.Tensor, rate: float, train: bool,
 
 
 def _make_norm(norm_type: str, features: int) -> nn.Module:
-    if norm_type == "Batch":
-        return MaskedBatchNorm(features)
-    if norm_type == "Layer":
-        return MaskedGraphLayerNorm(features)
-    if norm_type == "Instance":
-        return MaskedInstanceNorm()
-    if norm_type == "GraphSize":
-        return GraphSizeNorm()
-    if norm_type == "Pair":
-        return PairNorm()
-    raise ValueError("Not supported norm method")
+    cls = make_norm(norm_type)
+    if cls in (MaskedBatchNorm, MaskedGraphLayerNorm):
+        return cls(features)
+    return cls()
 
 
 def _apply_norm(norm: nn.Module, x: torch.Tensor, batch: GraphBatch,

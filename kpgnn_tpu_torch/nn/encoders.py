@@ -10,6 +10,23 @@ from .basic import TorchLinear
 from .embed import PaddedEmbed
 
 
+class FeatureSumEncoder(nn.Module):
+    """Sum of per-column embeddings ``emb{i}`` (defined upstream but
+    unused there); ``padding=True`` pins row 0 of every table to zero."""
+
+    def __init__(self, feature_dims: Sequence[int], hidden_size: int,
+                 padding: bool = False):
+        super().__init__()
+        self.dims = list(feature_dims)
+        for i, dim in enumerate(self.dims):
+            self.add_module(f"emb{i}", PaddedEmbed(
+                dim, hidden_size, padding_idx=0 if padding else None))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return sum(getattr(self, f"emb{i}")(x[..., i])
+                   for i in range(len(self.dims)))
+
+
 class FeatureConcatEncoder(nn.Module):
     """Per-column embeddings, concatenated then projected — the peripheral
     edge / configuration embeddings.

@@ -160,3 +160,18 @@ class PairNorm(nn.Module):
         xc = (x - preduce((x * m).sum(0), group) / cnt) * m
         return self.scale * xc * torch.rsqrt(preduce((xc ** 2).sum(), group)
                                              / cnt + self.eps)
+
+
+def make_norm(norm_type: str):
+    """The norm class under the reference's keys (reference:
+    models/GNNs.py:103-114)."""
+    table = {
+        "Batch": MaskedBatchNorm,
+        "Layer": MaskedGraphLayerNorm,
+        "Instance": MaskedInstanceNorm,
+        "GraphSize": GraphSizeNorm,
+        "Pair": PairNorm,
+    }
+    if norm_type not in table:
+        raise ValueError(f"Not supported norm method {norm_type!r}")
+    return table[norm_type]

@@ -33,7 +33,6 @@ from typing import Optional
 
 import torch
 
-from ..nn.embed import small_table_lookup, zero_row
 from .banded import BandedAdj, banded_khop_aggregate
 from .segment import khop_aggregate, multi_hop_degree, segment_sum
 from .sharded_adjacency import (ShardedCOOAdj, sharded_degree,
@@ -123,9 +122,10 @@ class DenseAdj:
 
 def _unported(adj) -> NotImplementedError:
     return NotImplementedError(
-        f"aggregation over {type(adj).__name__} is not ported (ROADMAP.md, "
-        "Queue 1): collate in 'coo', 'pallas', 'dense' or 'banded' mode, "
-        "or partition the batch (parallel/partition.py)")
+        f"no aggregation over {type(adj).__name__}: the adjacency must be a "
+        "COOAdj, KHopPlan, DenseAdj or BandedAdj (collate in 'coo', "
+        "'pallas', 'dense' or 'banded' mode), or a ShardedCOOAdj "
+        "(parallel/partition.py)")
 
 
 def hop_major_native(adj) -> bool:
@@ -156,7 +156,9 @@ def degree(adj, add_self_loop: bool = False) -> torch.Tensor:
 
 def union_in_degree(adj) -> torch.Tensor:
     """(N,) count of union edges into each node, regardless of hop
-    mask."""
+    mask; (n_local,) on a node shard."""
+    if isinstance(adj, ShardedCOOAdj):
+        return sharded_union_in_degree(adj)
     if isinstance(adj, COOAdj):
         return segment_sum(adj.edge_mask.float(), adj.receivers, adj.n_nodes)
     if isinstance(adj, (KHopPlan, BandedAdj)):
@@ -182,6 +184,9 @@ def khop_aggregate_adj(
     transpose each way), dense runs hop-major add natively; otherwise a
     hop-major x is transposed at the boundary.  A node shard exchanges
     its halo and aggregates locally in x's layout."""
+    # nn imports ops, so ops imports nn inside its functions
+    from ..nn.embed import small_table_lookup, zero_row
+
     if isinstance(adj, ShardedCOOAdj):
         return sharded_khop_aggregate(adj, x, table1, tablek, scale=scale,
                                       sender_scale=sender_scale, aggr=aggr,
@@ -226,6 +231,8 @@ def khop_aggregate_adj(
 
 
 def _zero_row_or_none(table: Optional[torch.Tensor], dtype):
+    from ..nn.embed import zero_row
+
     return None if table is None else zero_row(table).to(dtype)
 
 
@@ -282,6 +289,8 @@ def _dense_max(adj: DenseAdj, x, table1, tablek) -> torch.Tensor:
     gives x_j + emb(attr), a union edge dead at hop k gives a literal
     0.0, and a receiver with no union edges reads 0.  Max does not fold
     into counts @ table, so each hop builds its (B, n, n, D) messages."""
+    from ..nn.embed import small_table_lookup
+
     K, B, n = adj.K, adj.B, adj.n
     D = x.shape[-1]
     xb = x.reshape(B, n, K, D)

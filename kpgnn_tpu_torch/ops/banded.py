@@ -45,8 +45,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..nn.embed import zero_row
-
 BANDED_TILE = 256          # receiver rows per tile
 HALO_ALIGN = 64            # the halo rounds up to a multiple of this
 DEFAULT_HALO_CAP = 512     # edges reaching further than this spill to COO
@@ -348,6 +346,8 @@ def banded_khop_aggregate(
     Sender-side scales are structural and folded into the plan when it
     is built (``sender_weights``); a dynamic ``sender_scale`` is rejected
     either way, as is ``aggr="max"``."""
+    from ..nn.embed import zero_row      # nn imports ops
+
     if sender_scale is not None:
         raise ValueError(
             "banded backend takes no dynamic sender_scale: GCN's "

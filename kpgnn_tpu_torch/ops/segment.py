@@ -3,10 +3,17 @@ kpgnn_tpu/ops/segment.py).
 
 Pooling, per-graph statistics and virtual-node updates reduce node rows
 into graph slots by id.  ``khop_aggregate`` is the COO backend's
-gather -> mask -> segment reduction (``--backend coo``), on ``index_add_``
-and ``scatter_reduce``: plain PyTorch by design, as the JAX COO backend
-is plain XLA.  On the card ``index_add_`` sums with atomics, so its
-summation order varies from run to run.
+gather -> mask -> segment reduction (``--backend coo``), on
+``segment_sum`` and ``scatter_reduce``: plain PyTorch by design, as the
+JAX COO backend is plain XLA.
+
+On the card, a float ``segment_sum`` into at most ONEHOT_SEGMENTS_MAX
+segments (the graph-level reductions) is the JAX package's one-hot
+contraction, a cuBLAS product that sums in the same order in every run;
+``index_add_`` there adds with atomics, in an order that varies from run
+to run, and a sorted sum (``index_put_(accumulate=True)``) serialises on
+the pad segment's rows.  Larger segment counts (edge -> node) keep
+``index_add_``.  On the CPU ``index_add_`` adds in index order.
 """
 from __future__ import annotations
 
@@ -15,17 +22,40 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+# the JAX package's bound for its one-hot segment sums
+# (kpgnn_tpu/ops/segment.py:_ONEHOT_SEGMENTS_MAX)
+ONEHOT_SEGMENTS_MAX = 1024
+
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """Sums of rows by segment id, in data's dtype.  Floats narrower than
     f32 (bf16) accumulate in f32 and are cast back once, as the JAX
-    package's one-hot segment sums do."""
+    package's one-hot segment sums do; on the card a one-hot product for
+    few segments (the module docstring)."""
+    if (data.is_cuda and data.is_floating_point()
+            and num_segments <= ONEHOT_SEGMENTS_MAX):
+        return onehot_segment_sum(data, segment_ids, num_segments)
     acc = (torch.float32 if data.is_floating_point()
            and data.element_size() < 4 else data.dtype)
     out = torch.zeros((num_segments,) + tuple(data.shape[1:]),
                       dtype=acc, device=data.device)
     return out.index_add_(0, segment_ids.long(), data.to(acc)).to(data.dtype)
+
+
+def onehot_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    """``segment_sum`` of float rows as the JAX package's one-hot
+    contraction (kpgnn_tpu/ops/segment.py:_onehot_segment_sum): a
+    (segments, rows) 0/1 matrix times the rows, accumulated in f32 and
+    cast back to data's dtype; ids outside [0, num_segments) add
+    nothing."""
+    acc = torch.float32 if data.element_size() < 4 else data.dtype
+    oh = (torch.arange(num_segments, device=data.device)[:, None]
+          == segment_ids[None, :]).to(acc)
+    out = oh @ data.reshape(data.shape[0], -1).to(acc)
+    return out.reshape((num_segments,) + tuple(data.shape[1:])).to(
+        data.dtype)
 
 
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,

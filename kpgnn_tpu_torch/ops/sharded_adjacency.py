@@ -35,7 +35,6 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from ..nn.embed import small_table_lookup, zero_row
 from .banded import BandedAdj, banded_khop_aggregate
 from .segment import khop_aggregate, segment_sum
 from .spmm import KHopPlan, khop_spmm
@@ -218,6 +217,8 @@ def sharded_khop_aggregate(
     sender scale rides the same exchange as one more feature column.
     Local aggregation on the banded plan (without a sender scale, as in
     the JAX package), else the kernel plan, else COO."""
+    from ..nn.embed import small_table_lookup, zero_row  # nn imports ops
+
     dim = 1 if hop_major else 0
     payload = x
     if sender_scale is not None:

@@ -1,7 +1,8 @@
 """Cross-validation splits (counterpart of kpgnn_tpu/train/kfold.py).
 
 k_fold: stratified folds where fold i's validation set is fold i-1's
-test set, the reference protocol.
+test set, the reference protocol; k_fold_unstratified: the same on a
+seeded permutation.
 """
 from __future__ import annotations
 
@@ -33,6 +34,23 @@ def k_fold(n: int, labels: Sequence, folds: int = 10, seed: int = 12345
                          "training data")
     assign = _stratified_folds(np.asarray(labels), folds, seed)
     test_sets = [np.flatnonzero(assign == f) for f in range(folds)]
+    out = []
+    for f in range(folds):
+        test, val = test_sets[f], test_sets[f - 1]
+        mask = np.ones(n, dtype=bool)
+        mask[test] = False
+        mask[val] = False
+        out.append((np.flatnonzero(mask), val, test))
+    return out
+
+
+def k_fold_unstratified(n: int, folds: int = 10, seed: int = 12345
+                        ) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """[(train_idx, val_idx, test_idx)] per fold of a seeded
+    permutation cut into ``folds`` parts; val is the previous fold's
+    test."""
+    perm = np.random.default_rng(seed).permutation(n)
+    test_sets = [np.sort(t) for t in np.array_split(perm, folds)]
     out = []
     for f in range(folds):
         test, val = test_sets[f], test_sets[f - 1]

@@ -98,8 +98,8 @@ class GraphLoader:
     ):
         if mode not in ("coo", "pallas", "dense", "banded"):
             raise NotImplementedError(
-                f"loader mode {mode!r} is not ported yet (ROADMAP.md, "
-                "Queue 1); use mode='coo', 'pallas', 'dense' or 'banded'")
+                f"no loader mode {mode!r}: the mode must be 'coo', "
+                "'pallas', 'dense' or 'banded'")
         if mode != "coo" and (v1 is None or vk is None):
             raise ValueError(f"{mode} mode needs v1/vk vocab sizes")
         self.graphs = list(graphs)

@@ -31,7 +31,7 @@ from ..graph.data import Graph
 from ..ops.adjacency import COOAdj, DenseAdj
 from ..ops.banded import (BANDED_TILE, DEFAULT_HALO_CAP, HALO_ALIGN,
                           BandedAdj, build_banded)
-from .loop import evaluate, train_epoch
+from .loop import evaluate, resolve_device, train_epoch
 
 NODE_FIELDS = ("x", "pe_attr", "peripheral_edge_attr",
                "peripheral_config_attr", "rd", "z", "pos")
@@ -207,8 +207,10 @@ def _tensors(device, **arrays):
 
 def build_dense_store(graphs: Sequence[Graph], n_slot: int, v1: int,
                       vk: int, y_is_node_level: bool = False,
-                      device="cpu") -> DenseStore:
-    """The dataset as one DenseStore on ``device`` (one copy)."""
+                      device="cuda") -> DenseStore:
+    """The dataset as one DenseStore on ``device`` (one copy; without
+    CUDA the default raises, pass ``device="cpu"``)."""
+    device = resolve_device(str(device))
     Gs = len(graphs) + 1
     K = graphs[0].K
     hop16 = np.zeros((Gs, K, n_slot, n_slot), dtype=np.int16)
@@ -229,11 +231,12 @@ def build_dense_store(graphs: Sequence[Graph], n_slot: int, v1: int,
 def build_coo_store(graphs: Sequence[Graph], n_slot: Optional[int] = None,
                     e_slot: Optional[int] = None,
                     y_is_node_level: bool = False,
-                    device="cpu") -> COOStore:
-    """The dataset as one COOStore on ``device``; slots default to the
-    largest graph's nodes and edges.  Each graph's edges are sorted by
-    local receiver (stable), so a gathered batch is receiver-sorted
-    within each graph's block."""
+                    device="cuda") -> COOStore:
+    """The dataset as one COOStore on ``device`` (as in
+    build_dense_store); slots default to the largest graph's nodes and
+    edges.  Each graph's edges are sorted by local receiver (stable), so
+    a gathered batch is receiver-sorted within each graph's block."""
+    device = resolve_device(str(device))
     Gs = len(graphs) + 1
     K = graphs[0].K
     n_slot = n_slot if n_slot is not None else max(g.num_nodes
@@ -412,11 +415,12 @@ def build_banded_store(graphs: Sequence[Graph], v1: int, vk: int,
                        y_is_node_level: bool = False,
                        gcn_norm: bool = False,
                        shapes: Optional[tuple] = None,
-                       device="cpu") -> BandedStore:
+                       device="cuda") -> BandedStore:
     """The dataset's per-graph banded plans as one BandedStore on
-    ``device`` (one copy).  ``shapes`` pins (tile, halo, n_slot,
-    spill_pad), so that the train, val and test stores share them (the
-    Trainer plans them over every split)."""
+    ``device`` (one copy, as in build_dense_store).  ``shapes`` pins
+    (tile, halo, n_slot, spill_pad), so that the train, val and test
+    stores share them (the Trainer plans them over every split)."""
+    device = resolve_device(str(device))
     Gs = len(graphs) + 1
     K = graphs[0].K
     tile, halo, n_slot, spill_pad = (shapes if shapes is not None

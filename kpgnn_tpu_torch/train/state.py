@@ -1,6 +1,6 @@
-"""Optimizer construction and learning-rate access (counterpart of
-kpgnn_tpu/train/state.py).  Adam, or AdamW (decoupled weight decay) when
-l2_wd > 0, as the JAX package's optax choice."""
+"""Optimizer construction, learning-rate access and the parameter count
+(counterpart of kpgnn_tpu/train/state.py).  Adam, or AdamW (decoupled
+weight decay) when l2_wd > 0, as the JAX package's optax choice."""
 from __future__ import annotations
 
 import torch
@@ -21,3 +21,9 @@ def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
     for group in opt.param_groups:
         group["lr"] = lr
 
+
+
+def count_parameters(model: torch.nn.Module) -> int:
+    """Elements of the model's parameters (buffers such as running
+    statistics are not parameters, as they are not in flax's params)."""
+    return sum(p.numel() for p in model.parameters())

@@ -169,9 +169,10 @@ def test_loader_shuffle_order_matches():
 
 def test_loader_refuses_unported_modes():
     """Every mode of the JAX loader is ported; a mode it does not know
-    still raises, naming ROADMAP.md."""
+    still raises, naming the modes there are."""
     ts = tkhop.extract_graphs(raw_molecules(2), tkhop.KHopConfig(K=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match="'coo', 'pallas', 'dense' or 'banded'"):
         GraphLoader(ts, 2, mode="sharded", v1=4, vk=4)
 
 

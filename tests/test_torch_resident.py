@@ -59,7 +59,7 @@ def test_dense_gather_equals_collate_dense(prepped, idx):
     """The full batch and the padded partial one (3 graphs in 4 slots:
     the pad slots are the store's empty graph)."""
     _, ts = prepped
-    store = tres.build_dense_store(ts, N_SLOT, V1, VK)
+    store = tres.build_dense_store(ts, N_SLOT, V1, VK, device="cpu")
     chunks = tres.epoch_index_chunks(np.array(idx), 4, store.num_graphs)
     assert chunks.shape == (1, 4)
     got = tres.gather_batch(store, torch.as_tensor(chunks[0]).long())
@@ -83,7 +83,7 @@ def test_coo_gather_gives_the_collated_losses(prepped, idx):
     the same graphs (the second a padded partial batch): the same masked
     loss sum, count and predictions of the real graphs."""
     _, ts = prepped
-    store = tres.build_coo_store(ts)
+    store = tres.build_coo_store(ts, device="cpu")
     B = 5
     chunks = tres.epoch_index_chunks(np.array(idx), B, store.num_graphs)
     gathered = tres.gather_coo_batch(store, torch.as_tensor(chunks[0]).long())
@@ -125,16 +125,18 @@ def test_stores_equal_jax(node_level):
     js = jsyn.synthetic_molecules(9, JKHopConfig(**cfg), seed=4,
                                   node_level_y=node_level)
     assert_store_equals_jax(
-        tres.build_dense_store(ts, N_SLOT, 4, 7, node_level),
+        tres.build_dense_store(ts, N_SLOT, 4, 7, node_level, device="cpu"),
         jres.build_dense_store(js, N_SLOT, 4, 7, node_level))
     assert_store_equals_jax(
-        tres.build_coo_store(ts, y_is_node_level=node_level),
+        tres.build_coo_store(ts, y_is_node_level=node_level, device="cpu"),
         jres.build_coo_store(js, y_is_node_level=node_level))
     # the port counts its stores' bytes exactly
     for store, nbytes in (
-            (tres.build_dense_store(ts, N_SLOT, 4, 7, node_level),
+            (tres.build_dense_store(ts, N_SLOT, 4, 7, node_level,
+                                    device="cpu"),
              tres.store_nbytes(ts, N_SLOT, node_level)),
-            (tres.build_coo_store(ts, y_is_node_level=node_level),
+            (tres.build_coo_store(ts, y_is_node_level=node_level,
+                                  device="cpu"),
              tres.coo_store_nbytes(ts, max(g.num_nodes for g in ts),
                                    max(g.num_edges for g in ts),
                                    node_level))):

@@ -91,7 +91,8 @@ def test_plan_banded_store_shapes_equal_jax(dataset):
 @pytest.mark.parametrize("gcn_norm", [False, True])
 def test_build_banded_store_equals_jax(dataset, gcn_norm):
     js, ts = dataset
-    store = tres.build_banded_store(ts, V1, VK, gcn_norm=gcn_norm)
+    store = tres.build_banded_store(ts, V1, VK, gcn_norm=gcn_norm,
+                                    device="cpu")
     assert_store_equals_jax(store, jres.build_banded_store(
         js, V1, VK, gcn_norm=gcn_norm))
     assert store.live.dtype == (torch.float32 if gcn_norm else torch.int8)
@@ -99,7 +100,7 @@ def test_build_banded_store_equals_jax(dataset, gcn_norm):
     shapes = tres.plan_banded_store_shapes(ts)
     assert_store_equals_jax(
         tres.build_banded_store(ts[:3], V1, VK, gcn_norm=gcn_norm,
-                                shapes=shapes),
+                                shapes=shapes, device="cpu"),
         jres.build_banded_store(js[:3], V1, VK, gcn_norm=gcn_norm,
                                 shapes=shapes))
 
@@ -113,7 +114,8 @@ def test_banded_store_nbytes_is_the_built_stores(dataset, gcn_norm):
     purpose."""
     js, ts = dataset
     tile, halo, n_slot, spill = tres.plan_banded_store_shapes(ts)
-    store = tres.build_banded_store(ts, V1, VK, gcn_norm=gcn_norm)
+    store = tres.build_banded_store(ts, V1, VK, gcn_norm=gcn_norm,
+                                    device="cpu")
     ours = tres.banded_store_nbytes(ts, n_slot, tile, halo, spill, V1, VK,
                                     gcn_norm=gcn_norm)
     assert ours == store.nbytes()
@@ -138,7 +140,8 @@ def test_gather_gives_the_collated_predictions(dataset, gcn_norm):
     and the masked loss."""
     _, ts = dataset
     cfg = dict(MODEL, model_name="KPGCN") if gcn_norm else MODEL
-    store = tres.build_banded_store(ts, V1, VK, gcn_norm=gcn_norm)
+    store = tres.build_banded_store(ts, V1, VK, gcn_norm=gcn_norm,
+                                    device="cpu")
     assert store.spill_rows is not None
     idx = [0, 3, 2]
     got = tres.gather_banded_batch(store, torch.tensor(idx))
@@ -158,7 +161,7 @@ def test_gather_gives_the_collated_predictions(dataset, gcn_norm):
 
 def test_gather_pads_a_partial_batch(dataset):
     _, ts = dataset
-    store = tres.build_banded_store(ts, V1, VK)
+    store = tres.build_banded_store(ts, V1, VK, device="cpu")
     chunks = tres.epoch_index_chunks(np.array([1, 4]), 4, store.num_graphs)
     got = tres.gather_banded_batch(store, torch.as_tensor(chunks[0]).long())
     assert got.graph_mask.tolist() == [True] * 2 + [False] * 2
@@ -180,7 +183,7 @@ def test_gather_slice_hops_through_gnnplus(dataset):
     _, ts = dataset
     cfg = dict(MODEL, model_name="KPGINPlus", num_layer=3,
                combine="attention")
-    store = tres.build_banded_store(ts, V1, VK)
+    store = tres.build_banded_store(ts, V1, VK, device="cpu")
     idx = [0, 2]
     got = tres.gather_banded_batch(store, torch.tensor(idx))
     want = collate_banded([ts[i] for i in idx], v1=V1, vk=VK, g_pad=2,
@@ -197,7 +200,7 @@ def test_resident_epoch_equals_jax_on_carried_weights(dataset):
     js, ts = dataset
     order = np.array([4, 1, 0, 5, 2])
     jstore = jres.build_banded_store(js, V1, VK)
-    tstore = tres.build_banded_store(ts, V1, VK)
+    tstore = tres.build_banded_store(ts, V1, VK, device="cpu")
     chunks = tres.epoch_index_chunks(order, 2, tstore.num_graphs)
     jmodel = jmodels.make_model(jmodels.ModelConfig(**MODEL))
     state, tx = create_train_state(
@@ -277,7 +280,7 @@ def test_resident_eval_equals_per_batch_eval(dataset, bn_train_mode):
     running statistics as they were)."""
     _, ts = dataset
     model = init_parameters(make_model(ModelConfig(**MODEL)), 3)
-    store = tres.build_banded_store(ts, V1, VK)
+    store = tres.build_banded_store(ts, V1, VK, device="cpu")
     chunks = tres.epoch_index_chunks(np.arange(len(ts)), 4,
                                      store.num_graphs)
     before = {k: v.clone() for k, v in model.named_buffers()}

@@ -247,6 +247,7 @@ def test_adjacency_dispatch_matches_khop_spmm():
     np.testing.assert_array_equal(
         khop_aggregate_adj(plan, *args).numpy(),
         spmm.khop_spmm(*args, plan).numpy())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match="COOAdj, KHopPlan, DenseAdj or BandedAdj"):
         khop_aggregate_adj(object(), *args)
     assert hop_major_native(plan) and not hop_major_native(object())

@@ -329,8 +329,8 @@ def test_bn_train_mode_eval_resident_leaves_the_buffers(csl_small, mode):
     loader = GraphLoader(csl_small, 5, mode=mode, v1=3, vk=1002)
     for b in loader:                    # trained running statistics
         train_step(model, opt, b, "cross_entropy")
-    store = (build_dense_store(csl_small, loader.n_slot, 3, 1002)
-             if mode == "dense" else build_coo_store(csl_small))
+    store = (build_dense_store(csl_small, loader.n_slot, 3, 1002, device="cpu")
+             if mode == "dense" else build_coo_store(csl_small, device="cpu"))
     chunks = epoch_index_chunks(np.arange(len(csl_small)), 5,
                                 store.num_graphs)
     before = buffers(model)
