@@ -51,28 +51,35 @@ Phases, each of which fails the run loudly:
      equal to the script's, ``kt.train.count_parameters`` the JAX count
      (FLAGSHIP_PARAMS), 2L fused + 2L gather launches, the first-step loss
      the run's (rtol 1e-4), and the step on the card's clock; and
-     [determinism] (``determinism_phase``): the first DET_STEPS steps
-     twice from one seed must repeat bit for bit (graph-level
-     ``segment_sum`` is a one-hot product on the card); then twice in a
-     process under
+     [determinism] (``determinism_phase``): DET_STEPS steps twice from
+     one seed under default algorithms must repeat bit for bit, one line
+     a backend: the flagship on pallas and on coo, banded on the polymer
+     batch with halo 0 (its spill non-empty) and KPGCN on the CSL kernel
+     plan (its weighted histograms); the last three must launch the
+     sorted segment sum (every edge -> node float sum on the card: the
+     gather kernel with identity senders, ``ops/segment.py``).  Then the
+     pallas steps twice in a process under
      ``torch.use_deterministic_algorithms(True, warn_only=True)`` with
      CUBLAS_WORKSPACE_CONFIG=:4096:8, reported: the first differing step,
      the largest loss and parameter differences, and the ops that warn of
      no deterministic implementation.  Then resident epochs,
-     one epoch each under deterministic algorithms: ``--backend coo``
+     one epoch each under default algorithms: ``--backend coo``
      (``--resident auto``: the log shows the rule's decision, which must be
      ``resident_rule``'s), ``--resident off`` and ``--resident on``;
      ``--dense`` (auto, resident) and ``--dense --resident off`` twice.
      The resident run's step losses equal the per-batch run's within rtol
      1e-4 over every step where the batches are the same (dense) and the
      per-batch run repeats itself bit for bit, else over the first step;
-     COO's slot layout sums in another order, so its first batch gathered
-     from the store is held against the collated one by loss and every
+     COO's slot layout sums its graph-level sums in another order, so its
+     first batch gathered from the store is held against the collated one
+     by loss and every
      graph's prediction (rtol 1e-5) and by every gradient under the
      gradient gate (below), the collated steps replaying the gathered
-     step's ReLU branches on the real nodes; each epoch's seconds, and
-     one step's time, launches and idle share resident against per batch
-     on each store (without deterministic algorithms);
+     step's ReLU branches on the real nodes; the COO control (4 steps
+     from weights moved by an ulp against unmoved); each epoch's seconds,
+     and one step's time, launches and idle share resident against per
+     batch on each store, and on coo per batch the device ms of the
+     sorted sums;
   4. csl    — run ``kpgnn_tpu_torch.scripts.train_csl.main`` at the
      reference width (KPGIN on GNN, K=4 L=4 H=48, batch 64, --backend
      pallas, fold 0 of the 10-fold split, 2 epochs): finite losses,
@@ -243,8 +250,8 @@ Phases, each of which fails the run loudly:
      the card, and the link projection's halo, boundary, union-edge, comm
      and psum numbers equal a direct ``partition_adj`` of the same
      65,536-node polymer; ``make_parity_golden --all`` on the card (under
-     deterministic algorithms: the bundles aggregate on COO, whose card
-     atomics sum in a varying order) and on the CPU: each card bundle
+     default algorithms: the bundles aggregate on COO, whose sums add in
+     one order) and on the CPU: each card bundle
      replays on the card within 1e-6, holds the
      CPU bundle's parameters bit for bit and its activations within atol
      1e-5 / rtol 1e-4.  The launch counts, set to 0 before each script
@@ -271,9 +278,19 @@ over the ranks; and the bf16 variants on the flagship plan with the
 fused form and the gather (both over the forward CSR) on each plan of
 [tools], with the launches of the script that takes it (tune_pallas at
 D=104 and D=16, scaling_estimate's ici mode at D=104), counted apart
-from every other entry.  The first
-entries' launches also count the multi-rank legs and the --parallel
-runs.
+from every other entry; then the same kernel as the sorted segment sum
+(``sorted_segment_sum[...]``, identity senders, its launches counted
+apart in ``segment.sorted_segment_sum``) at each (variant, width) of
+each [determinism] leg's first batch (coo at D = k*104 for the hop
+windows k = 1..8, the polymer spill at D=34, KPGCN's histograms at
+D=1) and of the [bf16] COO first step (the bf16 variant at those
+widths), with the launches of one run of that leg, its error against
+the plain version on the CPU copy of inputs of the variant's dtype,
+a bound of its own (rows, indptr and sums, no sender bytes) and, as
+the library call, the ``index_add_`` the path ran before
+(``sorted_sum_times``).  The
+first entries' launches also count the multi-rank legs and the
+--parallel runs.
 
 Tolerances: f32 gather vs plain version atol 1e-5, except the hub row,
 whose 10k-term sums may differ in summation order by up to 1e-6 of the
@@ -286,8 +303,8 @@ probabilistic bound of f32 summation error; bf16 input vs the plain
 version on the same bf16 values, both summed in f32, rtol 1e-3 (its
 backward gathers the gradient in bf16, as the --bf16 path does); first
 train-step loss GPU vs CPU, and kernel vs COO backend on the card, rtol
-1e-4 (on the card the COO backend's index_add_ sums with atomics, in an
-order that varies from run to run, so neither side is bitwise fixed);
+1e-4 (the backends sum in other orders: the kernel plan's fused hops
+against the COO messages' sorted sum);
 gradient gate (the family steps, the QM9 step, KPGINPrime K=16 L=16,
 the node-property step),
 one step on the card against the same step on the CPU: the loss rtol
@@ -731,6 +748,20 @@ def kernel_bound_ms(csr, D, x_bytes, fused=False):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def sorted_sum_bound_ms(n, rows, D, x_bytes):
+    """Least time for one sorted segment sum of ``rows`` rows of width D
+    into n segments: the rows read once, the (n + 1) int32 indptr read
+    once and the f32 (n, D) sums written once, over the HBM rate; one
+    add per element over the f32 rate.  No sender bytes: a sorted sum
+    reads its rows in order (the kernel's identity senders are a detail
+    of its reuse).  Returns (ms, by)."""
+    t_bytes = (rows * D * x_bytes + (n + 1) * 4 + n * D * 4) \
+        / HBM_BYTES_PER_S
+    t_ops = rows * D / F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def misalign(t):
     """A contiguous copy of t whose data_ptr is one element past a 16-byte
     boundary (the kernel's scalar variant)."""
@@ -902,8 +933,8 @@ def profile_step(torch, step, step_ms, label, steps=3):
     ``indexing_backward_kernel`` (the serialising backward of a gather
     into a small table, PERF.md).  Returns (device busy ms, launches,
     idle share, indexing_backward ms, kernel names, {kernel name:
-    launches}) per step, or None where the profiler recorded no
-    kernel."""
+    launches}, {kernel name: device ms}) per step, or None where the
+    profiler recorded no kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -935,7 +966,8 @@ def profile_step(torch, step, step_ms, label, steps=3):
     return (busy_ms, launches, 1 - busy_ms / step_ms,
             sum(e.self_device_time_total for e in ib) / 1e3 / steps,
             [e.key for e in kernels],
-            {e.key: e.count / steps for e in kernels})
+            {e.key: e.count / steps for e in kernels},
+            {e.key: e.self_device_time_total / 1e3 / steps for e in kernels})
 
 
 EXP_EPOCHS, EXP_FOLDS, SR_EPOCHS = 2, 2, 3
@@ -2669,30 +2701,18 @@ def parity_golden_phase(ctx):
     ``--device cpu`` into the scratch dir.  Each card bundle replays on
     the card within 1e-6 (``replay_bundle``), holds the CPU bundle's keys,
     its parameters bit for bit and its activations within atol 1e-5 /
-    rtol 1e-4.  The card's builds and replays run under deterministic
-    algorithms: the bundles' COO aggregation sums with atomics on the
-    card, in an order that varies from run to run, and a replay checks
-    that the bundle is reproducible."""
+    rtol 1e-4.  The card's builds and replays run under default
+    algorithms: the bundles' COO aggregation adds through the sorted
+    segment sum, in one order, and a replay checks that the bundle is
+    reproducible."""
     import numpy as np
     from kpgnn_tpu_torch.scripts import make_parity_golden as mpg
 
-    torch = ctx.torch
     dirs = {d: os.path.join(ctx.work, f"golden_{d}") for d in ("cuda", "cpu")}
     buf = io.StringIO()
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    torch.backends.cudnn.deterministic = True
-    try:
-        with warnings.catch_warnings(record=True) as caught, \
-                contextlib.redirect_stdout(buf):
-            warnings.simplefilter("always")
-            card = mpg.main(["--all", "--out_dir", dirs["cuda"]])
-            replays = [mpg.replay_bundle(pc, device=ctx.dev) for pc in card]
-    finally:
-        torch.use_deterministic_algorithms(False)
-        torch.backends.cudnn.deterministic = False
-    nondet = sorted({str(w.message).split(".")[0][:90] for w in caught
-                     if "deterministic" in str(w.message)})
     with contextlib.redirect_stdout(buf):
+        card = mpg.main(["--all", "--out_dir", dirs["cuda"]])
+        replays = [mpg.replay_bundle(pc, device=ctx.dev) for pc in card]
         cpu = mpg.main(["--all", "--out_dir", dirs["cpu"], "--device",
                         "cpu"])
     check(len(card) == len(cpu) == len(mpg.CONFIGS),
@@ -2715,10 +2735,9 @@ def parity_golden_phase(ctx):
                 check(a.dtype == b.dtype and np.array_equal(a, b),
                       f"golden {name} {k}: card and CPU differ")
         notes.append(f"{name} replay {replay:.1e} card-CPU {worst:.1e}")
-    log(f"[tools] make_parity_golden --all on the card and the CPU: "
-        f"{len(card)} bundles, parameters bitwise equal; ops without a "
-        f"deterministic implementation on the card: {nondet or 'none'}; "
-        f"max |diff| " + "; ".join(notes))
+    log(f"[tools] make_parity_golden --all on the card (default "
+        f"algorithms) and the CPU: {len(card)} bundles, parameters bitwise "
+        f"equal; max |diff| " + "; ".join(notes))
     return card
 
 
@@ -2767,10 +2786,10 @@ def kernel_tests():
             proc.stdout[-3000:] + proc.stderr[-2000:])
 
 
-def det_steps(torch, mcfg, batches, dev):
+def det_steps(torch, mcfg, batches, dev, loss="l1"):
     """``len(batches)`` Adam steps of the model ``mcfg`` from SEED on
-    ``dev``: the losses and the parameters after them (flat, on the
-    CPU)."""
+    ``dev`` (dropout from a generator seeded with SEED): the losses and
+    the parameters after them (flat, on the CPU)."""
     from kpgnn_tpu_torch.models.factory import make_model
     from kpgnn_tpu_torch.nn.inits import init_parameters
     from kpgnn_tpu_torch.train.loop import train_step
@@ -2778,9 +2797,10 @@ def det_steps(torch, mcfg, batches, dev):
 
     model = init_parameters(make_model(mcfg), SEED).to(dev)
     opt = make_optimizer(model.parameters(), 1e-3)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
     losses = []
     for b in batches:
-        lsum, cnt = train_step(model, opt, b.to(dev))
+        lsum, cnt = train_step(model, opt, b.to(dev), loss, gen)
         losses.append(float(lsum / cnt))
     return losses, torch.cat([p.detach().flatten().cpu()
                               for p in model.parameters()])
@@ -2912,15 +2932,165 @@ def api_phase(ctx):
     return w
 
 
+def det_legs(ctx):
+    """The [determinism] legs beyond the flagship on pallas, each an
+    edge -> node sum that adds through ``sorted_segment_sum`` on the
+    card: (label, model config, batches, loss).  The flagship on
+    ``--backend coo`` (its first DET_STEPS batches); banded on the
+    polymer batch with halo 0, so that every cross-tile edge spills (the
+    auto halo leaves it no spill); KPGCN on the CSL kernel plan (the
+    weighted histograms of its sender scale)."""
+    from kpgnn_tpu_torch.graph.batch import collate_banded
+    from kpgnn_tpu_torch.scripts import common, train_csl
+    from kpgnn_tpu_torch.scripts import profile_step as ps
+    from kpgnn_tpu_torch.train.loader import GraphLoader
+
+    coo = GraphLoader(ctx.tl.graphs, BATCH, shuffle=True, seed=SEED,
+                      mode="coo")
+    lcfg = ps.large_config()
+    poly = collate_banded(polymer_graphs(), v1=lcfg.num_hop1_edge + 2,
+                          vk=lcfg.max_pe_num + 2, halo=0)
+    fargs = train_csl.parser().parse_args(csl_argv(
+        os.path.join(ctx.work, "csl"), "cuda", "pallas", "KPGCN"))
+    fcfg = common.model_config(fargs, input_encoder=("linear", 1),
+                               task="graph_classification", output_size=10)
+    # CSL's fold-0 train split fills 2 batches: they take turns
+    csl = first_batches(ctx.ctl, min(DET_STEPS, len(ctx.ctl)))
+    return [("coo", ctx.mcfg, first_batches(coo, DET_STEPS), "l1"),
+            ("banded spill", lcfg, [poly] * DET_STEPS, "l1"),
+            ("KPGCN plan", fcfg, [csl[i % len(csl)]
+                                  for i in range(DET_STEPS)],
+             "cross_entropy")]
+
+
+def sorted_sum_uses(torch, legs):
+    """The sorted segment sum's inputs on each leg's first batch, as its
+    path gives them: (label, ids, segments, indptr, rows E, {(variant,
+    D): launches a run}).  The COO messages (E, k, H) of each hop window,
+    summed as (E, k*H) rows into the nodes (the [determinism] coo leg in
+    f32, the [bf16] COO step in bf16); the banded spill's rows into the
+    K*N hop-major rows; KPGCN's sender scales into the plan's (receiver
+    row, attr code) bins (``KHopPlan.hist_bins``)."""
+    out = []
+    for label, (batch, w) in legs.items():
+        adj = batch.adj
+        if label.startswith("coo"):
+            ids, n, indptr = adj.receivers, adj.n_nodes, adj.indptr
+        elif label == "banded spill":
+            ids, n = adj.spill_rows, adj.n_hops * adj.n_nodes
+            indptr = adj.spill_indptr
+        else:
+            h = adj.hist_bins()
+            ids, indptr, n = h.seg, h.indptr, h.row.shape[0]
+        out.append((label, ids, n, indptr, ids.shape[0], dict(sorted(
+            w.items(), key=lambda kv: (kv[0][1], kv[0][0])))))
+    return out
+
+
+def sorted_sum_times(ctx, legs):
+    """The sorted segment sum at each use of ``sorted_sum_uses``, on
+    random rows of each (variant, width) its leg launched, in the
+    variant's dtype: the card against the plain version
+    (``sorted_segment_sum_reference``) on the CPU copy of the same inputs
+    (max |err|; tolerance 1e-5 plus 1e-6 of the largest segment's sum of
+    |terms|, and for bf16 one bf16 ulp, 2**-7, of the largest |sum|;
+    whether bit for bit), its time, the plain version's on the card
+    (``index_add_`` of the CSR's rows, accumulated in f32 as the sum
+    does), the library call's (the ``index_add_`` the path ran before:
+    every row, the ids past the last segment into one trash row) and
+    the bound (``sorted_sum_bound_ms``).  Returns the ``kernels``
+    entries."""
+    from kpgnn_tpu_torch.ops import spmm
+    from kpgnn_tpu_torch.ops.segment import (sorted_segment_sum,
+                                             sorted_segment_sum_reference)
+
+    torch = ctx.torch
+    gen = torch.Generator(device=ctx.dev).manual_seed(9)
+    entries = []
+    for label, ids, n, indptr, E, widths in sorted_sum_uses(torch, legs):
+        lo, hi = int(indptr[0]), int(indptr[-1])
+        live = ids[lo:hi].long()
+        trash = ids.long().clamp(0, n)
+        for (variant, D), launches in widths.items():
+            dt = torch.bfloat16 if "bf16" in variant else torch.float32
+            xs = [torch.randn(E, D, device=ctx.dev, generator=gen).to(dt)
+                  for _ in range(3)]
+            got = sorted_segment_sum(xs[0], ids, n, indptr).cpu().float()
+            want = sorted_segment_sum_reference(xs[0].cpu(), ids.cpu(), n,
+                                                indptr.cpu()).float()
+            absum = sorted_segment_sum_reference(
+                xs[0].abs().cpu().float(), ids.cpu(), n, indptr.cpu())
+            err = float((got - want).abs().max())
+            tol = 1e-5 + 1e-6 * float(absum.max())
+            if dt == torch.bfloat16:
+                tol += 2.0 ** -7 * float(want.abs().max())
+            ms = time_ms(torch, lambda x: sorted_segment_sum(
+                x, ids, n, indptr), xs)
+            plain = time_ms(torch, lambda x: torch.zeros(
+                n, D, device=ctx.dev).index_add_(0, live, x[lo:hi].float()
+                                                  ).to(dt), xs)
+            lib = time_ms(torch, lambda x: torch.zeros(
+                n + 1, D, device=ctx.dev).index_add_(0, trash, x.float()
+                                                      ).to(dt), xs)
+            bound, by = sorted_sum_bound_ms(n, hi - lo, D,
+                                            xs[0].element_size())
+            # the same kernel variant, named for this use
+            name = variant.replace("gather_segment_sum", "sorted_segment_sum")
+            log(f"[time] {name} {label} D={D} ({E} rows, "
+                f"{hi - lo} in the CSR, {n} segments; {launches} launches "
+                f"a run): {ms:.4f} ms, plain {plain:.4f} ms, index_add_ "
+                f"{lib:.4f} ms, bound {bound:.5f} ms ({by}); max |err| "
+                f"against the CPU's plain version {err:.2e} (tol "
+                f"{tol:.1e}){', bit for bit' if err == 0 else ''}")
+            check(err <= tol, f"sorted_segment_sum {label} D={D}: max "
+                  f"|err| {err:.3e} > {tol:.3e}")
+            entries.append(dict(
+                name=f"{name} D={D} {label}", variant=variant,
+                **KERNEL, shape=f"{label}: {E} rows into {n} segments, "
+                f"D={D}", launches=launches, max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=lib))
+    return entries
+
+
 def determinism_phase(ctx):
-    """[determinism]: the flagship's first DET_STEPS pallas steps twice
-    from one seed, which must repeat bit for bit; then, reported, twice
-    under deterministic algorithms in a process of its own
-    (``determinism_child``)."""
+    """[determinism]: DET_STEPS steps twice from one seed under default
+    algorithms, which must repeat bit for bit, one line a backend: the
+    flagship on pallas, and the ``det_legs`` (coo, banded with a spill,
+    KPGCN's plan), each of which must launch the sorted segment sum;
+    then, reported, the flagship's pallas steps twice under
+    deterministic algorithms in a process of its own
+    (``determinism_child``).  Returns {leg: (its first batch on the
+    card, the sorted sums' launches of one run by (variant, D))}."""
+    from kpgnn_tpu_torch.ops import segment
+
     torch = ctx.torch
     batches = first_batches(ctx.tl, DET_STEPS)
     default = det_compare(
         [det_steps(torch, ctx.mcfg, batches, ctx.dev) for _ in range(2)])
+    log(f"[determinism] pallas: {DET_STEPS} flagship steps twice from seed "
+        f"{SEED} (f32, TF32 off), default algorithms: {det_text(*default)}")
+    check(default[0] is None and default[2] == 0.0,
+          f"determinism: two runs of the same pallas steps differ: "
+          f"{det_text(*default)}")
+    legs = {}
+    for label, cfg, lb, loss in det_legs(ctx):
+        segment.reset_launch_counts()
+        runs = [det_steps(torch, cfg, lb, ctx.dev, loss) for _ in range(2)]
+        torch.cuda.synchronize()
+        w = Counter({k: n // 2 for k, n in
+                     segment.sorted_segment_sum.width_launches.items()})
+        res = det_compare(runs)
+        log(f"[determinism] {label}: {DET_STEPS} {cfg.model_name} K={cfg.K} "
+            f"H={cfg.hidden_size} steps twice from seed {SEED}, default "
+            f"algorithms: {det_text(*res)}; sorted segment sums a run by "
+            f"(variant, D): {dict(w)}")
+        check(res[0] is None and res[2] == 0.0,
+              f"determinism: two runs of the same {label} steps differ: "
+              f"{det_text(*res)}")
+        check(w, f"determinism: the {label} steps launched no sorted "
+              f"segment sum")
+        legs[label] = (lb[0].to(ctx.dev), w)
     path = os.path.join(ctx.work, "det_batches.pkl")
     with open(path, "wb") as f:
         pickle.dump((ctx.mcfg, batches, str(ctx.dev)), f)
@@ -2932,15 +3102,11 @@ def determinism_phase(ctx):
     check(proc.returncode == 0, f"determinism: the deterministic run "
           f"failed:\n{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
     det = json.loads(proc.stdout.strip().splitlines()[-1])
-    log(f"[determinism] {DET_STEPS} flagship pallas steps twice from seed "
-        f"{SEED} (f32, TF32 off), default algorithms: {det_text(*default)}; "
-        f"in a process of its own, under use_deterministic_algorithms "
-        f"(CUBLAS_WORKSPACE_CONFIG=:4096:8): "
+    log(f"[determinism] pallas, reported: in a process of its own, under "
+        f"use_deterministic_algorithms (CUBLAS_WORKSPACE_CONFIG=:4096:8): "
         f"{det_text(*det['deterministic'])}, ops that warn of no "
         f"deterministic implementation: {det['warned'] or 'none'}")
-    check(default[0] is None and default[2] == 0.0,
-          f"determinism: two runs of the same steps differ: "
-          f"{det_text(*default)}")
+    return legs
 
 
 def main():
@@ -2963,7 +3129,7 @@ def main():
     from kpgnn_tpu_torch.models.factory import make_model
     from kpgnn_tpu_torch.nn.basic import TorchLinear
     from kpgnn_tpu_torch.nn.inits import init_parameters
-    from kpgnn_tpu_torch.ops import cuda_lib, spmm
+    from kpgnn_tpu_torch.ops import cuda_lib, segment, spmm
     from kpgnn_tpu_torch.ops.lstm import BiLSTM
     from kpgnn_tpu_torch.prep import native
     from kpgnn_tpu_torch.prep.khop import extract_graphs
@@ -3581,8 +3747,11 @@ def main():
             (default "pallas").
             ``sl.variants`` names the (fused, gather) variants, f32 by
             default.  Records the dtypes of the model's parameters and
-            norm statistics after the run in ``sl.dtypes``.  Returns (rows,
-            step losses, launches per variant, per (variant, D))."""
+            norm statistics after the run in ``sl.dtypes``, and each card
+            backend's first step (its batch on the card, its sorted
+            segment sums by (variant, D), counted from 0 just before it)
+            in ``sl.sorted_sums``.  Returns (rows, step losses, launches
+            per variant, per (variant, D))."""
             fv, gv = getattr(sl, "variants", (fused_v, gather_v))
             rtol = getattr(sl, "rtol", 1e-4)
             rows = []
@@ -3628,9 +3797,15 @@ def main():
                   f"backward, per eval step L fused forward)")
             refs = {"CPU": first_step_loss(sl, first_batch(
                 sl.loaders[getattr(sl, "cpu_mode", "pallas")]), "cpu")}
+            sl.sorted_sums = {}
             for name in backends:
+                fb_ = first_batch(sl.loaders[name])
+                segment.reset_launch_counts()
                 refs[f"--backend {name} on the card"] = first_step_loss(
-                    sl, first_batch(sl.loaders[name]), dev)
+                    sl, fb_, dev)
+                torch.cuda.synchronize()
+                sl.sorted_sums[name] = (fb_.to(dev), +Counter(
+                    segment.sorted_segment_sum.width_launches))
             got = float(losses[0])
             rel = {k: abs(got - x) / abs(x) for k, x in refs.items()}
             log(f"[{label}] first-step loss GPU {got:.7f}, " + ", ".join(
@@ -3659,10 +3834,11 @@ def main():
         ctx = SimpleNamespace(
             torch=torch, spmm=spmm, dev=dev, work=work, args=args,
             splits=splits, zinc_train=zinc_train, tl=tl, mcfg=mcfg,
-            zloss=float(zlosses[0]), fused_v=fused_v, gather_v=gather_v)
+            zloss=float(zlosses[0]), fused_v=fused_v, gather_v=gather_v,
+            ctl=ctl)
         api_w = api_phase(ctx)
         mark("api")
-        determinism_phase(ctx)
+        det_runs = determinism_phase(ctx)
         mark("determinism")
         # ---- 3b. --bf16 on the main path: the kernel's bf16 variants ----
         fused_b = spmm.variant_name(torch.bfloat16, True, True)
@@ -3678,6 +3854,15 @@ def main():
             vars(zinc), argv=bargv, cfg=bmcfg, variants=(fused_b, gather_b),
             rtol=BF16_RTOL))
         _, blosses, _, bf16_w = script_phase("bf16", zinc_bf16, ("coo",))
+        # the bf16 COO step's sorted sums: the sum's bf16 variant at the
+        # flagship's widths, timed and checked beside the [determinism]
+        # legs'
+        coo_bf16 = zinc_bf16.sorted_sums["coo"]
+        log(f"[bf16] the COO first step's sorted segment sums by (variant, "
+            f"D): {dict(coo_bf16[1])}")
+        check(any("bf16" in v for v, _ in coo_bf16[1]),
+              "bf16: the COO step launched no bf16 sorted segment sum")
+        det_runs["coo bf16"] = coo_bf16
         rel = abs(blosses[0] - zlosses[0]) / abs(zlosses[0])
         log(f"[bf16] first-step loss {blosses[0]:.7f}, the f32 run's "
             f"{zlosses[0]:.7f} (rel diff {rel:.2e}, bound 5e-2); parameters "
@@ -3741,42 +3926,30 @@ def main():
         def resident_runs(label, base, argv, runs):
             """The runs ``runs`` ({name: (extra argv, resident expected)})
             of ``base``'s script with ``argv(save_dir) + extra``, under
-            deterministic algorithms (the card's atomics would otherwise
-            make two runs of one mode drift apart: ``resident_gate``).
-            Each run's log must show the expected decision.  Returns {name:
-            (step losses, train epoch seconds)}."""
+            default algorithms (every sum of every backend adds in one
+            order on the card, so two runs of one mode repeat:
+            ``resident_gate``).  Each run's log must show the expected
+            decision.  Returns {name: (step losses, train epoch
+            seconds)}."""
             out = {}
-            torch.use_deterministic_algorithms(True, warn_only=True)
-            torch.backends.cudnn.deterministic = True
-            try:
-                with warnings.catch_warnings(record=True) as caught:
-                    warnings.simplefilter("always")
-                    for name, (extra, resident) in runs.items():
-                        save = os.path.join(work, "resident",
-                                            f"{label}_{name}".replace(" ", "_"))
-                        rsl = SimpleNamespace(**dict(
-                            vars(base), L=0, argv=argv(save) + list(extra)))
-                        rows, losses, _, _ = script_phase(
-                            f"resident {label} {name}", rsl, ())
-                        text = run_log(save)
-                        went = ("resident store:" in text
-                                or "resident stores" in text)
-                        line = [x.split("] ", 1)[-1] for x in text.splitlines()
-                                if "resident store" in x
-                                or "per-batch epochs" in x]
-                        log(f"[resident] {label} {name}: "
-                            f"{line[0] if line else 'no decision logged'}; "
-                            f"train epoch {rows[0]['seconds']:.3f} s")
-                        check(went == resident, f"resident {label} {name}: "
-                              f"went resident {went}, expected {resident}")
-                        out[name] = (losses, rows[0]["seconds"])
-            finally:
-                torch.use_deterministic_algorithms(False)
-                torch.backends.cudnn.deterministic = False
-            nondet = sorted({str(w.message).split(".")[0][:90] for w in caught
-                             if "deterministic" in str(w.message)})
-            log(f"[resident] {label}: ops without a deterministic "
-                f"implementation: {nondet or 'none'}")
+            for name, (extra, resident) in runs.items():
+                save = os.path.join(work, "resident",
+                                    f"{label}_{name}".replace(" ", "_"))
+                rsl = SimpleNamespace(**dict(
+                    vars(base), L=0, argv=argv(save) + list(extra)))
+                rows, losses, _, _ = script_phase(
+                    f"resident {label} {name}", rsl, ())
+                text = run_log(save)
+                went = ("resident store:" in text
+                        or "resident stores" in text)
+                line = [x.split("] ", 1)[-1] for x in text.splitlines()
+                        if "resident store" in x or "per-batch epochs" in x]
+                log(f"[resident] {label} {name}: "
+                    f"{line[0] if line else 'no decision logged'}; "
+                    f"train epoch {rows[0]['seconds']:.3f} s")
+                check(went == resident, f"resident {label} {name}: went "
+                      f"resident {went}, expected {resident}")
+                out[name] = (losses, rows[0]["seconds"])
             return out
 
         def resident_gate(label, out, resident, per, per2, same_batches):
@@ -3784,8 +3957,9 @@ def main():
             within rtol 1e-4: every step where the batches are the same
             (dense) and the per-batch run repeats itself bit for bit;
             else the first step only.  Two runs that sum in another order
-            (COO's slot layout against collate's packing, or atomics)
-            drift apart from the second step on: Adam's first updates
+            (COO's slot layout against collate's packing: the one-hot
+            graph-level sums) drift apart from the second step on: Adam's
+            first updates
             move each weight by about lr * sign(g), and rounding flips
             the sign of gradients near 0 (PERF.md §6).  Logs both runs'
             drift."""
@@ -3884,9 +4058,9 @@ def main():
               f"layout")
         # the control for the drift above: rounding alone.  The per-batch
         # run's first 4 steps again, from its weights and from the same
-        # weights moved by an ulp, under deterministic algorithms; the
-        # parameters whose entries end furthest apart, by the share of
-        # entries more than lr apart
+        # weights moved by an ulp, under default algorithms (the steps
+        # repeat); the parameters whose entries end furthest apart, by
+        # the share of entries more than lr apart
         def coo_steps(batches, moved):
             model = init_parameters(make_model(mcfg), SEED)
             model = (ulp_moved(torch, model) if moved else model).to(dev)
@@ -3896,14 +4070,8 @@ def main():
             return (np.array(losses), {n: p.detach().cpu()
                                        for n, p in model.named_parameters()})
         control = first_batches(zinc.loaders["coo"], 4)
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        torch.backends.cudnn.deterministic = True
-        try:
-            (base, pb), (moved, pm) = (coo_steps(control, m)
-                                       for m in (False, True))
-        finally:
-            torch.use_deterministic_algorithms(False)
-            torch.backends.cudnn.deterministic = False
+        (base, pb), (moved, pm) = (coo_steps(control, m)
+                                   for m in (False, True))
         apart = sorted(((float(((pm[n] - p).abs() > args.lr).float().mean()),
                          n) for n, p in pb.items()), reverse=True)
 
@@ -3942,8 +4110,19 @@ def main():
                         rmodel, ropt, host_batch.to(dev)))):
                 rms = host_step_ms(torch, step)
                 log(f"[time] {mode} {how} train step {rms:.2f} ms")
-                step_profiles[f"{mode} {how}"] = profile_step(
+                prof = step_profiles[f"{mode} {how}"] = profile_step(
                     torch, step, rms, f"{mode} {how}")
+                if mode == "coo" and prof is not None:
+                    # the edge -> node sums: the sorted sum's kernel (and
+                    # the CSR it may build), and any index_add_ left
+                    sums = [k for k in prof[6] if any(
+                        w in k for w in ("gather_segment_sum", "indexFunc",
+                                         "searchsorted"))]
+                    log(f"[profile] {mode} {how} train step: the edge -> "
+                        f"node sums by kernel (device ms / launches a "
+                        f"step): " + ("; ".join(
+                            f"{k[:70]} {prof[6][k]:.4f} / {prof[5][k]:g}"
+                            for k in sums) or "none"))
 
         mark("resident")
         # ---- 4. the CSL slice: train_csl at the reference width ----
@@ -4398,6 +4577,9 @@ def main():
         tool_t = {label: shape_times(tp, d, label, hop_k_rows(tp))[2]
                   for label, (tp, d) in tplans.items()}
         mark("time tool plans")
+        # ---- the sorted segment sum at the [determinism] legs' shapes ----
+        sorted_entries = sorted_sum_times(ctx, det_runs)
+        mark("time sorted sums")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4519,6 +4701,10 @@ def main():
             entries.append(new_entry(
                 vname, d, f"{label} k={tp.K} plan, timed over {what}", label,
                 tool_t[label][vname, what], w))
+    # the sorted segment sum (the same kernel, identity senders) at the
+    # [determinism] legs' shapes, each with the launches of one run of
+    # its leg
+    entries += sorted_entries
     log("[phases] seconds: " + ", ".join(
         f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks, marks[1:]))
         + f"; total {marks[-1][1] - marks[0][1]:.1f}")

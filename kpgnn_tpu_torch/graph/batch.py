@@ -195,9 +195,16 @@ def collate(
     graph_mask = np.zeros((g_pad,), dtype=bool)
     graph_mask[:B] = True
 
+    # the receivers' CSR over the real edges: the padded tail (all into
+    # node n_pad - 1) lies past indptr[n_pad], outside every node's range,
+    # and takes the zero gradient row n_pad
+    indptr = np.searchsorted(receivers[:off_e], np.arange(n_pad + 1))
+    grad_rows = receivers.copy()
+    grad_rows[off_e:] = n_pad
     adj = COOAdj(senders=_t(senders), receivers=_t(receivers),
                  edge_attr=_t(edge_attr), edge_mask=_t(edge_mask),
-                 n_nodes=n_pad)
+                 n_nodes=n_pad, indptr=_t(indptr.astype(np.int32)),
+                 grad_rows=_t(grad_rows))
     return _finish(graphs, adj, n_pad, g_pad, node_mask, node_graph_ids,
                    graph_mask, y_is_node_level)
 

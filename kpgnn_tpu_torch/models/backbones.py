@@ -303,16 +303,19 @@ class GNNPlus(_Backbone):
 
 class GNN(_Backbone):
     """A stack of ``num_layer`` identical KP layers; the peripheral
-    embedding has the layers' hop width d_k = H / K, behind a sigmoid
+    embedding has the layers' hop width d_k = H / K, or H with
+    ``peripheral_full_width`` (GNNPlus's width), behind a sigmoid
     gate."""
 
     def __init__(self, num_layer: int, hidden_size: int, K: int,
                  layer_fn: Callable[[int], nn.Module],
-                 init_encoder: nn.Module, **kw):
+                 init_encoder: nn.Module,
+                 peripheral_full_width: bool = False, **kw):
         super().__init__(num_layer, hidden_size, K, init_encoder,
                          [(f"gnn{l}", layer_fn(l))
                           for l in range(num_layer)],       # noqa: E741
-                         hidden_size // K, "sigmoid", **kw)
+                         hidden_size if peripheral_full_width
+                         else hidden_size // K, "sigmoid", **kw)
 
     def forward(self, batch: GraphBatch, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -43,13 +43,22 @@ from .spmm import KHopPlan, khop_spmm
 
 @dataclasses.dataclass
 class COOAdj:
-    """Receiver-sorted, padded edge list of a collated batch."""
+    """Receiver-sorted, padded edge list of a collated batch.  ``indptr``
+    is the receivers' CSR, built once a batch (numpy in ``collate``,
+    ``searchsorted`` in the resident gather): node i's edges are
+    [indptr[i], indptr[i+1]), and a tail of padded edges past
+    indptr[n_nodes] lies outside every node's range.  ``grad_rows`` is
+    the sums' backward rows (``segment.segment_grad_rows``: the
+    receivers, n_nodes on that tail), built with it.  Without them the
+    aggregation builds both on the device."""
 
     senders: torch.Tensor       # (E,) int32
     receivers: torch.Tensor     # (E,) int32, sorted ascending
     edge_attr: torch.Tensor     # (E, K) int32, 0 = hop absent
     edge_mask: torch.Tensor     # (E,) bool
     n_nodes: int
+    indptr: Optional[torch.Tensor] = None   # (n_nodes + 1,) int32
+    grad_rows: Optional[torch.Tensor] = None    # (E,) int32
 
     @property
     def K(self) -> int:
@@ -63,7 +72,10 @@ class COOAdj:
             self, senders=self.senders.to(device),
             receivers=self.receivers.to(device),
             edge_attr=self.edge_attr.to(device),
-            edge_mask=self.edge_mask.to(device))
+            edge_mask=self.edge_mask.to(device),
+            indptr=None if self.indptr is None else self.indptr.to(device),
+            grad_rows=(None if self.grad_rows is None
+                       else self.grad_rows.to(device)))
 
 
 @dataclasses.dataclass
@@ -143,7 +155,7 @@ def degree(adj, add_self_loop: bool = False) -> torch.Tensor:
         return sharded_degree(adj, add_self_loop)
     if isinstance(adj, COOAdj):
         return multi_hop_degree(adj.edge_attr, adj.receivers, adj.n_nodes,
-                                add_self_loop)
+                                add_self_loop, indptr=adj.indptr)
     if isinstance(adj, (KHopPlan, BandedAdj)):
         deg = adj.degree()
     elif isinstance(adj, DenseAdj):     # (B, K, n) live counts -> (B, n, K)
@@ -160,7 +172,8 @@ def union_in_degree(adj) -> torch.Tensor:
     if isinstance(adj, ShardedCOOAdj):
         return sharded_union_in_degree(adj)
     if isinstance(adj, COOAdj):
-        return segment_sum(adj.edge_mask.float(), adj.receivers, adj.n_nodes)
+        return segment_sum(adj.edge_mask.float(), adj.receivers,
+                           adj.n_nodes, indptr=adj.indptr)
     if isinstance(adj, (KHopPlan, BandedAdj)):
         return adj.union_deg
     if isinstance(adj, DenseAdj):
@@ -227,7 +240,8 @@ def khop_aggregate_adj(
         if sender_scale is not None:
             edge_scale = edge_scale * sender_scale[adj.senders.long()]
     return khop_aggregate(x, adj.senders, adj.receivers, e_emb, attr,
-                          adj.edge_mask, scale=edge_scale, aggr=aggr)
+                          adj.edge_mask, scale=edge_scale, aggr=aggr,
+                          indptr=adj.indptr, grad_rows=adj.grad_rows)
 
 
 def _zero_row_or_none(table: Optional[torch.Tensor], dtype):

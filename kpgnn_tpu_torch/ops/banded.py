@@ -15,8 +15,10 @@ aggregation has no gather or scatter over the band and differentiates
 through the matmul.
 
 Edges outside the halo (long-range chords, cross-graph noise) spill to
-a COO side list: one ``F.embedding`` gather and one ``index_add_``, as
-the COO backend does, so the backend degrades per edge, never per batch.
+a row-sorted COO side list: one ``F.embedding`` gather and one sorted
+segment sum (``segment.sorted_segment_sum``: on the card the gather
+kernel, adding each row's spill in list order), as the COO backend
+does, so the backend degrades per edge, never per batch.
 
 Semantics are every other backend's: per hop k, out[i,k] = aggr_j
 live(attr[k,i,j]) · s_i (x[j,k] + emb_k(attr)), with the embedding part
@@ -44,6 +46,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .segment import sorted_segment_sum
 
 BANDED_TILE = 256          # receiver rows per tile
 HALO_ALIGN = 64            # the halo rounds up to a multiple of this
@@ -77,9 +81,11 @@ class BandedAdj:
     # folded into live, the histograms and spill_weights: callers must
     # then not pass sender_scale (KPGCNConv passes only the receiver's)
     sender_scaled: bool = False
-    # build_banded emits row-sorted spill lists; the resident BandedStore
-    # interleaves per-graph lists across the hop-major row space and
-    # clears this
+    # (K·N + 1,) int32 CSR of the sorted spill rows over the output rows
+    # (sentinel rows lie past its end); a hop slice takes its prefix
+    spill_indptr: Optional[torch.Tensor] = None
+    # spill lists are row-sorted: build_banded emits them so, and the
+    # resident gather sorts each batch's list once
     spill_sorted: bool = True
     tile: int = BANDED_TILE
     halo: int = 0
@@ -128,7 +134,8 @@ class BandedAdj:
             hop_deg=move(self.hop_deg),
             spill_senders=move(self.spill_senders),
             spill_rows=move(self.spill_rows),
-            spill_weights=move(self.spill_weights), mask_cache=None)
+            spill_weights=move(self.spill_weights),
+            spill_indptr=move(self.spill_indptr), mask_cache=None)
 
     def slice_hops(self, k: int) -> "BandedAdj":
         return self._slice(k, lead=0)
@@ -153,13 +160,18 @@ class BandedAdj:
             sp_r = None if dead else self.spill_rows[cut]
             sp_w = (None if dead or self.spill_weights is None
                     else self.spill_weights[cut])
+        # rows are hop-major: the first k hops' CSR is a prefix
+        sp_i = (None if sp_s is None or self.spill_indptr is None
+                else self.spill_indptr[ix + (slice(
+                    None, k * self.live.shape[lead + 1] * self.tile + 1),)])
         return dataclasses.replace(
             self, live=self.live[ix + (slice(None, k),)],
             countsk=(self.countsk[ix + (slice(None), slice(None, k - 1))]
                      if k > 1 else None),
             hop_deg=self.hop_deg[ix + (slice(None), slice(None, k))],
             spill_senders=sp_s, spill_rows=sp_r, spill_weights=sp_w,
-            spill_hop_ends=self.spill_hop_ends[:k], n_hops=k,
+            spill_indptr=sp_i, spill_hop_ends=self.spill_hop_ends[:k],
+            n_hops=k,
             mask_cache=self.mask_cache if lead == 0 else None)
 
 
@@ -247,7 +259,7 @@ def build_banded(receivers, senders, attr, n_nodes: int, v1: int, vk: int,
                 sp_w.append(sender_weights[senders[out], k])
 
     wrap = (lambda a: a) if as_numpy else torch.from_numpy
-    spill_senders = spill_rows = spill_weights = None
+    spill_senders = spill_rows = spill_weights = spill_indptr = None
     spill_hop_ends: Tuple[int, ...] = ()
     if sp_r or spill_pad:
         rows = (np.concatenate(sp_r).astype(np.int64) if sp_r
@@ -275,6 +287,8 @@ def build_banded(receivers, senders, attr, n_nodes: int, v1: int, vk: int,
                 wts = np.concatenate([wts, np.zeros(pad, np.float32)])
         spill_rows = wrap(rows.astype(np.int32))
         spill_senders = wrap(cols.astype(np.int32))
+        spill_indptr = wrap(np.searchsorted(
+            rows, np.arange(K * n_nodes + 1)).astype(np.int32))
         spill_weights = wrap(wts) if wts is not None else None
         if spill_pad is None:
             spill_hop_ends = tuple(
@@ -307,8 +321,8 @@ def build_banded(receivers, senders, attr, n_nodes: int, v1: int, vk: int,
         countsk=wrap(countsk) if countsk is not None else None,
         union_deg=wrap(union_deg), hop_deg=wrap(hop_deg),
         spill_senders=spill_senders, spill_rows=spill_rows,
-        spill_weights=spill_weights, spill_hop_ends=spill_hop_ends,
-        tile=tile, halo=halo, n_hops=K,
+        spill_weights=spill_weights, spill_indptr=spill_indptr,
+        spill_hop_ends=spill_hop_ends, tile=tile, halo=halo, n_hops=K,
         n_cols_static=(0 if cn == n_nodes else cn),
         sender_scaled=sender_weights is not None)
 
@@ -384,11 +398,10 @@ def banded_khop_aggregate(
             x.reshape(K * cn, D)).float()
         if adj.spill_weights is not None:
             gathered = gathered * adj.spill_weights[:, None]
-        # rows >= K·N (the pads' sentinel, hops past a slice) land in one
-        # trash row, sliced off
-        rows = adj.spill_rows.long().clamp(max=K * N)
-        out = torch.cat([out, out.new_zeros(1, D)]).index_add_(
-            0, rows, gathered)[:K * N]
+        # rows >= K·N (the pads' sentinel, hops past a slice) lie past
+        # the CSR's end and add nothing
+        out = out + sorted_segment_sum(gathered, adj.spill_rows, K * N,
+                                       adj.spill_indptr)
 
     # the histogram matmuls in f32 (exact integer counts; exact f32
     # weighted sums on sender-scaled plans): hop 1, then hops 2..K as one

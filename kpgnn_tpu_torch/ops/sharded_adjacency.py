@@ -17,8 +17,9 @@ gradients from the collectives' transposes, here each collective on the
 forward is an ``autograd.Function``: ``all_reduce_sum``'s backward
 all-reduces the cotangent by SUM, and ``halo_exchange``'s backward sends
 the halo rows' cotangents back with the reverse all_to_all and adds them
-into the owned rows they came from (``index_add_``: a row sent to several
-shards gets several adds, in an order the card does not fix).  With each
+into the owned rows they came from (a row sent to several shards gets
+several adds, through ``segment.sorted_segment_sum`` over the send plan
+sorted once at partition time, so in one order).  With each
 rank backpropagating loss / P and the parameter gradients then summed
 over the group (parallel/partition.py), every parameter gets exactly
 the one-device gradient.
@@ -36,7 +37,8 @@ import torch
 import torch.distributed as dist
 
 from .banded import BandedAdj, banded_khop_aggregate
-from .segment import khop_aggregate, segment_sum
+from .segment import (khop_aggregate, segment_indptr, segment_sum,
+                      sorted_segment_sum)
 from .spmm import KHopPlan, khop_spmm
 
 
@@ -106,6 +108,16 @@ class ShardedCOOAdj:
     # this rank's banded plan over the halo-extended table
     # (parallel/partition.attach_banded_plans)
     banded: Optional[BandedAdj] = None
+    # (n_local + 1,) int32 CSR of the local receivers over the real edges
+    # (the padded tail lies past its end), and the sums' backward rows
+    # (the receivers, n_local on that tail); built at partition time
+    indptr: Optional[torch.Tensor] = None
+    grad_rows: Optional[torch.Tensor] = None
+    # the send plan sorted once at partition time, for the halo
+    # exchange's backward: send_rows.reshape(-1)[halo_order] is sorted,
+    # and halo_indptr ((n_local + 1,) int32) is its CSR
+    halo_order: Optional[torch.Tensor] = None
+    halo_indptr: Optional[torch.Tensor] = None
 
     @property
     def K(self) -> int:
@@ -134,12 +146,17 @@ class ShardedCOOAdj:
             else self.banded.slice_hops(k))
 
     def to(self, device) -> "ShardedCOOAdj":
+        def move(t):
+            return None if t is None else t.to(device)
         return dataclasses.replace(
             self, senders=self.senders.to(device),
             receivers=self.receivers.to(device),
             edge_attr=self.edge_attr.to(device),
             edge_mask=self.edge_mask.to(device),
             send_rows=self.send_rows.to(device),
+            indptr=move(self.indptr), grad_rows=move(self.grad_rows),
+            halo_order=move(self.halo_order),
+            halo_indptr=move(self.halo_indptr),
             plan=None if self.plan is None else self.plan.to(device),
             banded=None if self.banded is None else self.banded.to(device))
 
@@ -168,11 +185,14 @@ class _HaloExchange(torch.autograd.Function):
     """[owned | halo from shard 0 | ... | shard P-1] along ``dim``: rank i
     sends the rows send_rows[j] to shard j in one all_to_all_single.
     Backward: the halo blocks' cotangents go back the same way and are
-    added into the rows they were read from."""
+    added into the rows they were read from, in the order ``order`` sorts
+    ``rows`` into (``indptr`` the sorted rows' CSR), through the sorted
+    segment sum."""
 
     @staticmethod
-    def forward(ctx, payload, rows, group, dim):
+    def forward(ctx, payload, rows, order, indptr, group, dim):
         ctx.rows, ctx.group, ctx.dim = rows, group, dim
+        ctx.order, ctx.indptr = order, indptr
         ctx.n_local = payload.shape[dim]
         send = payload.index_select(dim, rows).movedim(dim, 0).contiguous()
         recv = torch.empty_like(send)
@@ -186,9 +206,10 @@ class _HaloExchange(torch.autograd.Function):
         halo = halo.movedim(ctx.dim, 0).contiguous()
         back = torch.empty_like(halo)
         dist.all_to_all_single(back, halo, group=ctx.group)
-        grad = own.contiguous().index_add(ctx.dim, ctx.rows,
-                                          back.movedim(0, ctx.dim))
-        return grad, None, None, None
+        added = sorted_segment_sum(back[ctx.order], ctx.rows[ctx.order],
+                                   ctx.n_local, ctx.indptr)
+        return (own + added.movedim(0, ctx.dim), None, None, None, None,
+                None)
 
 
 def halo_exchange(adj: ShardedCOOAdj, payload: torch.Tensor,
@@ -197,8 +218,17 @@ def halo_exchange(adj: ShardedCOOAdj, payload: torch.Tensor,
     (0 node-major, 1 hop-major) -> n_ext rows, the extended table.  One
     all_to_all moves P·B rows per rank: the whole per-layer
     communication of the sharded backend."""
-    return _HaloExchange.apply(payload, adj.send_rows.reshape(-1).long(),
-                               adj.group, dim)
+    return _HaloExchange.apply(payload, adj.send_rows.reshape(-1),
+                               adj.halo_order, adj.halo_indptr, adj.group,
+                               dim)
+
+
+def halo_plan(rows: torch.Tensor, n_local: int):
+    """(the stable order that sorts the flat send plan ``rows``, the
+    sorted rows' (n_local + 1,) int32 CSR): the halo exchange's backward
+    sum over it adds each row's cotangents in one order."""
+    order = torch.sort(rows, stable=True)[1]
+    return order, segment_indptr(rows[order], n_local)
 
 
 def sharded_khop_aggregate(
@@ -253,7 +283,8 @@ def sharded_khop_aggregate(
             edge_scale = edge_scale * ss_ext[adj.senders.long()]
     out = khop_aggregate(ext, adj.senders, adj.receivers, e_emb, attr,
                          adj.edge_mask, scale=edge_scale, aggr=aggr,
-                         num_segments=adj.n_local)
+                         num_segments=adj.n_local, indptr=adj.indptr,
+                         grad_rows=adj.grad_rows)
     return out.transpose(0, 1) if hop_major else out
 
 
@@ -262,9 +293,10 @@ def sharded_degree(adj: ShardedCOOAdj, add_self_loop: bool = False
     """(n_local, K) per-hop in-degree, purely local: every edge into an
     owned node lives in the local shard."""
     deg = segment_sum((adj.edge_attr > 0).float(), adj.receivers,
-                      adj.n_local)
+                      adj.n_local, indptr=adj.indptr)
     return deg + 1.0 if add_self_loop else deg
 
 
 def sharded_union_in_degree(adj: ShardedCOOAdj) -> torch.Tensor:
-    return segment_sum(adj.edge_mask.float(), adj.receivers, adj.n_local)
+    return segment_sum(adj.edge_mask.float(), adj.receivers, adj.n_local,
+                       indptr=adj.indptr)

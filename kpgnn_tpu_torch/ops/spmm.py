@@ -95,6 +95,59 @@ class HopCSR:
 
 
 @dataclasses.dataclass
+class HistBins:
+    """The forward CSR's live edges grouped into their (receiver row, attr
+    code) bins, for the weighted histograms of a sender scale (GCN's
+    norm; ``KHopPlan.hist_bins``): ``order`` sorts the edges by (row,
+    code), stably; sorted edge j lies in bin ``seg[j]``; bin b holds the
+    sorted edges [indptr[b], indptr[b+1]) and is (row[b], code[b]).
+    Rows are hop-major, so a hop prefix of the edges is a prefix of the
+    bins: the first k hops end at bin ``hop_ends[k-1]``, edge
+    ``hop_edges[k-1]``."""
+
+    order: torch.Tensor         # (E,) int64
+    seg: torch.Tensor           # (E,) int32
+    indptr: torch.Tensor        # (U + 1,) int32
+    row: torch.Tensor           # (U,) int64 hop-major receiver row
+    code: torch.Tensor          # (U,) int64
+    hop_ends: Tuple[int, ...] = ()
+    hop_edges: Tuple[int, ...] = ()
+
+    @classmethod
+    def build(cls, rows: np.ndarray, codes: np.ndarray, n_nodes: int,
+              K: int) -> "HistBins":
+        order = np.lexsort((codes, rows))
+        r, c = rows[order], codes[order]
+        new = np.ones(len(order), bool)
+        new[1:] = (r[1:] != r[:-1]) | (c[1:] != c[:-1])
+        starts = np.flatnonzero(new)
+        t = lambda a, dt: torch.from_numpy(a.astype(dt))   # noqa: E731
+        return cls(order=t(order, np.int64),
+                   seg=t(np.cumsum(new) - 1, np.int32),
+                   indptr=t(np.append(starts, len(order)), np.int32),
+                   row=t(r[starts], np.int64), code=t(c[starts], np.int64),
+                   hop_ends=tuple(int(np.searchsorted(r[starts],
+                                                      (k + 1) * n_nodes))
+                                  for k in range(K)),
+                   hop_edges=tuple(int(np.searchsorted(r, (k + 1) * n_nodes))
+                                   for k in range(K)))
+
+    def cut(self, k: int) -> "HistBins":
+        """The first k hops."""
+        u, e = self.hop_ends[k - 1], self.hop_edges[k - 1]
+        return HistBins(order=self.order[:e], seg=self.seg[:e],
+                        indptr=self.indptr[:u + 1], row=self.row[:u],
+                        code=self.code[:u], hop_ends=self.hop_ends[:k],
+                        hop_edges=self.hop_edges[:k])
+
+    def to(self, device) -> "HistBins":
+        return dataclasses.replace(
+            self, order=self.order.to(device), seg=self.seg.to(device),
+            indptr=self.indptr.to(device), row=self.row.to(device),
+            code=self.code.to(device))
+
+
+@dataclasses.dataclass
 class KHopPlan:
     """Forward/backward CSRs plus embedding count histograms; the
     adjacency of a batch collated in "pallas" mode."""
@@ -113,6 +166,12 @@ class KHopPlan:
     union_deg: torch.Tensor
     hop_deg: torch.Tensor           # (N, K) per-hop live in-degree
     n_hops: int = 1
+    # the host arrays the weighted histograms' bins are built from, on
+    # first use (``hist_bins``): fwd's hop-major receiver rows and codes,
+    # and the plan's node count and hops
+    hist_src: Optional[tuple] = None
+    # {device: the whole plan's HistBins}, shared with its hop slices
+    hist_cache: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def K(self) -> int:
@@ -144,10 +203,23 @@ class KHopPlan:
             countsk_hm=self.countsk_hm[:k - 1] if k > 1 else None,
             edge_recv=self.edge_recv[:e],
             union_deg=self.union_deg, hop_deg=self.hop_deg[:, :k],
-            n_hops=k)
+            n_hops=k, hist_src=self.hist_src, hist_cache=self.hist_cache)
 
     def degree(self) -> torch.Tensor:
         return self.hop_deg
+
+    def hist_bins(self) -> HistBins:
+        """fwd's edges by (receiver row, attr code), for the weighted
+        histograms: built on the host on first use, since only
+        sender-scaled models (GCN, SAGE) read them, and kept for the plan,
+        its device copies and its hop slices."""
+        dev = self.edge_recv.device
+        full = self.hist_cache.get(dev)
+        if full is None:
+            full = self.hist_cache[dev] = HistBins.build(
+                *self.hist_src).to(dev)
+        return full if self.n_hops == len(full.hop_ends) \
+            else full.cut(self.n_hops)
 
 
 def build_csr(receivers, senders, n_rows: int, n_cols: int,
@@ -220,8 +292,8 @@ def build_plan(receivers, senders, attr, n_nodes: int, v1: int, vk: int,
                     else None),
         edge_recv=torch.from_numpy(recv_f),
         union_deg=torch.from_numpy(union_deg),
-        hop_deg=torch.from_numpy(hop_deg),
-        n_hops=K)
+        hop_deg=torch.from_numpy(hop_deg), n_hops=K,
+        hist_src=(recv_f, code_f, n_nodes, K))
 
 
 # hops one launch can take (the kernel's kMaxHops; the repo's deepest
@@ -354,6 +426,25 @@ def gather_segment_sum(x: torch.Tensor, indptr: torch.Tensor,
     if x.device.type == "cpu":
         return gather_segment_sum_reference(x, indptr, senders, n_rows, codes,
                                             table1, tablek, rows_per_hop)
+    out, variant = launch_kernel(x, indptr, senders, n_rows, codes, table1,
+                                 tablek, rows_per_hop, hop_live)
+    gather_segment_sum.variant_launches[variant] += 1
+    gather_segment_sum.width_launches[variant, x.shape[1]] += 1
+    return out
+
+
+def launch_kernel(x: torch.Tensor, indptr: torch.Tensor,
+                  senders: torch.Tensor, n_rows: int,
+                  codes: Optional[torch.Tensor] = None,
+                  table1: Optional[torch.Tensor] = None,
+                  tablek: Optional[torch.Tensor] = None,
+                  rows_per_hop: int = 0,
+                  hop_live: Tuple[int, ...] = ()
+                  ) -> Tuple[torch.Tensor, str]:
+    """One launch of the kernel on CUDA tensors that passed ``_check``:
+    (the (n_rows, D) float32 sums, the variant it took).  It counts
+    nothing; each wrapper that calls it counts its own launches
+    (``gather_segment_sum`` here, ``segment.sorted_segment_sum``)."""
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     fused = codes is not None
@@ -384,10 +475,7 @@ def gather_segment_sum(x: torch.Tensor, indptr: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"gather_segment_sum kernel launch failed: "
                            f"cudaError {err}")
-    variant = variant_name(x.dtype, vec, fused)
-    gather_segment_sum.variant_launches[variant] += 1
-    gather_segment_sum.width_launches[variant, D] += 1
-    return out
+    return out, variant_name(x.dtype, vec, fused)
 
 
 def variant_name(dtype: torch.dtype, vec: bool, fused: bool) -> str:
@@ -466,14 +554,20 @@ def _weighted_hists(plan: KHopPlan, sender_scale: torch.Tensor,
                     V: int) -> torch.Tensor:
     """(K, N, V) histograms of per-hop attr codes weighted by the sender
     scale: W[k, i, v] = sum over live hop-k edges e -> i with code v of
-    s[sender(e), k]."""
+    s[sender(e), k]: a sorted segment sum over the plan's bins
+    (``KHopPlan.hist_bins``: each bin's edges in one order), written into
+    the zeroed histograms (each bin once)."""
+    from .segment import sorted_segment_sum     # segment imports spmm
+
     K = sender_scale.shape[1]
     n = plan.counts1.shape[0]
+    h = plan.hist_bins()
     s_flat = sender_scale.t().reshape(-1)                 # (K * cn,)
-    s_e = s_flat[plan.fwd.senders.long()]
-    idx = plan.edge_recv * V + plan.fwd.codes.long()
-    out = torch.zeros(K * n * V, dtype=s_e.dtype, device=s_e.device)
-    return out.index_add_(0, idx, s_e).reshape(K, n, V)
+    s_e = s_flat[plan.fwd.senders[h.order].long()]
+    sums = sorted_segment_sum(s_e, h.seg, h.row.shape[0], h.indptr)
+    out = torch.zeros(K * n * V, dtype=sums.dtype, device=sums.device)
+    out[h.row * V + h.code] = sums
+    return out.reshape(K, n, V)
 
 
 def _zero_row0(table: torch.Tensor) -> torch.Tensor:

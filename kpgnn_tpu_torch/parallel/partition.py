@@ -36,7 +36,7 @@ import torch
 from ..graph.batch import GraphBatch
 from ..ops.adjacency import COOAdj
 from ..ops.banded import BANDED_TILE, build_banded
-from ..ops.sharded_adjacency import ShardedCOOAdj, all_reduce_sum
+from ..ops.sharded_adjacency import ShardedCOOAdj, all_reduce_sum, halo_plan
 from ..ops.spmm import build_plan
 from ..train.loop import _batch_target_mask, _masked_loss, eval_step
 from .dp import all_reduce_sums, reduce_gradients
@@ -115,11 +115,22 @@ def partition_adj(adj: COOAdj, n_shards: int, rank: int,
     R[:e] = receivers[lo:hi] - i * n_local
     A[:e] = attr[lo:hi]
     M[:e] = emask[lo:hi]
+    # the receivers' CSR ends at the last real edge: the padded tail (into
+    # the last local slot) lies outside every row's range
+    real = int(np.flatnonzero(M)[-1]) + 1 if M.any() else 0
+    indptr = np.searchsorted(R[:real], np.arange(n_local + 1))
+    grad_rows = R.copy()
+    grad_rows[real:] = n_local
+    order, halo_indptr = halo_plan(torch.from_numpy(send_rows).reshape(-1),
+                                   n_local)
     return ShardedCOOAdj(
         senders=torch.from_numpy(S), receivers=torch.from_numpy(R),
         edge_attr=torch.from_numpy(A), edge_mask=torch.from_numpy(M),
         send_rows=torch.from_numpy(send_rows), n_local=n_local,
-        n_shards=n_shards, rank=rank, group=group, boundary=boundary)
+        n_shards=n_shards, rank=rank, group=group, boundary=boundary,
+        indptr=torch.from_numpy(indptr.astype(np.int32)),
+        grad_rows=torch.from_numpy(grad_rows), halo_order=order,
+        halo_indptr=halo_indptr)
 
 
 def _live_edges(adj: ShardedCOOAdj):

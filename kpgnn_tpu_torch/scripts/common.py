@@ -3,8 +3,9 @@ kpgnn_tpu/scripts/common.py).
 
 The argparse surface is the JAX package's, flag for flag, plus
 ``--device`` (default ``cuda``).  ``--backend`` takes ``coo`` (the
-flag's default, as in the JAX CLI: plain PyTorch ``index_add_``
-aggregation, as the JAX COO backend is plain XLA), ``pallas`` (the
+flag's default, as in the JAX CLI: a gather and sorted segment sums,
+``ops/segment.py``, which on the card run the gather kernel with
+identity senders), ``pallas`` (the
 hand-written CUDA gather/segment-sum), ``dense`` (per-graph hop tiles,
 batched matmuls on cuBLAS; ``--dense`` is its shorthand) or ``banded``
 (halo-window masks for large, locally ordered graphs, one batched
@@ -130,7 +131,7 @@ def base_parser(description: str, **defaults) -> argparse.ArgumentParser:
                    help="shorthand for --backend dense")
     p.add_argument("--backend", type=str, default="coo",
                    choices=("coo", "dense", "pallas", "banded"),
-                   help="adjacency backend: 'coo' (index_add_ segment "
+                   help="adjacency backend: 'coo' (sorted segment "
                         "sums), 'pallas' (the fused-hop CUDA "
                         "gather/segment-sum plan), 'dense' (per-graph "
                         "hop tiles, batched matmuls) or 'banded' "

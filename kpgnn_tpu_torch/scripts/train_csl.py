@@ -7,7 +7,8 @@ constant LR.  The reference configuration is KPGIN on the GNN backbone,
 K=4 h=48 L=4, batch 64.  ``--device`` defaults to cuda (without CUDA it
 raises unless ``--device cpu`` is given); ``--backend pallas`` runs the
 aggregation through the CUDA kernel, ``--backend coo`` (the default, as
-in the JAX CLI) through ``index_add_``.
+in the JAX CLI) through sorted segment sums (the same kernel with
+identity senders).
 
     python -m kpgnn_tpu_torch.scripts.train_csl --backend pallas
 

@@ -18,10 +18,14 @@ class TrainConfig:
     # plateau scheduler (reference: train_ZINC.py:245-252)
     factor: float = 0.5
     patience: int = 10
+    # step-decay alternative (reference: train_TU.py:119-121)
+    step_decay_every: Optional[int] = None
+    step_decay_factor: float = 0.5
     # loss: "l1" | "mse" | "cross_entropy"
     loss: str = "l1"
     # stop when the plateau scheduler bottoms out (reference ZINC behavior)
     stop_at_min_lr: bool = False
+    drop_last: bool = False
     save_dir: Optional[str] = None
     # warm start from a checkpoint; best-val checkpoints under
     # save_dir/checkpoints (train/checkpoint.py)

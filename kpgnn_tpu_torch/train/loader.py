@@ -70,15 +70,20 @@ def _round_up(x: int, m: int) -> int:
 
 
 class GraphLoader:
-    """mode="coo": batches carry the receiver-sorted edge list;
-    mode="pallas": the fused-hop kernel plan; mode="dense": per-graph
-    hop-attr tiles of ``n_slot`` nodes (default: the largest graph,
-    rounded up to 8) and ``batch_size`` graph slots; mode="banded": the
-    halo-window plan (``banded_gcn_norm`` folds KPGCN's sender scale into
-    it), its halo and spill length pinned to the dataset's worst case
-    (``banded_halo``, ``banded_spill_pad``) so that every batch has one
-    shape.  Pallas, dense and banded need v1/vk equal to the model's
-    num_hop1_edge + 2 / max_pe_num + 2."""
+    """mode="coo" (the default, as in the JAX loader): batches carry the
+    receiver-sorted edge list; mode="pallas": the fused-hop kernel plan;
+    mode="dense": per-graph hop-attr tiles of ``n_slot`` nodes (default:
+    the largest graph, rounded up to 8) and ``batch_size`` graph slots;
+    mode="banded": the halo-window plan (``banded_gcn_norm`` folds
+    KPGCN's sender scale into it), its halo and spill length pinned to
+    the dataset's worst case (``banded_halo``, ``banded_spill_pad``) so
+    that every batch has one shape.  Pallas, dense and banded need v1/vk
+    equal to the model's num_hop1_edge + 2 / max_pe_num + 2.
+    ``drop_last`` leaves out the last batch when it is not full, as the
+    Trainer's resident epochs then do.
+
+    JAX-only: ``pallas_geometry`` (the TPU kernel's tile_r, wblock and
+    egroup) is not accepted; the Hopper kernel's plan has no tiles."""
 
     def __init__(
         self,
@@ -90,7 +95,8 @@ class GraphLoader:
         e_pad: Optional[int] = None,
         spec: Optional[BucketSpec] = None,
         y_is_node_level: bool = False,
-        mode: str = "pallas",
+        drop_last: bool = False,
+        mode: str = "coo",
         v1: Optional[int] = None,
         vk: Optional[int] = None,
         n_slot: Optional[int] = None,
@@ -107,6 +113,7 @@ class GraphLoader:
         self.shuffle = shuffle
         self.rng = np.random.default_rng(seed)
         self.y_is_node_level = y_is_node_level
+        self.drop_last = drop_last
         self.mode = mode
         self.v1, self.vk = v1, vk
         self.banded_gcn_norm = banded_gcn_norm
@@ -155,6 +162,8 @@ class GraphLoader:
         return self._collate(self.graphs[: self.batch_size])
 
     def __len__(self) -> int:
+        if self.drop_last:
+            return len(self.graphs) // self.batch_size
         return math.ceil(len(self.graphs) / self.batch_size)
 
     def _collate(self, batch_graphs) -> GraphBatch:

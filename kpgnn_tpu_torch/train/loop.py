@@ -442,6 +442,9 @@ class Trainer:
             G = len(train_loader.graphs)
             order = (train_loader.rng.permutation(G)
                      if train_loader.shuffle else np.arange(G))
+            if getattr(train_loader, "drop_last", False):
+                bs = train_loader.batch_size
+                order = order[:(len(order) // bs) * bs]
             return resident_epoch(train_store, chunks(
                 order, train_loader.batch_size, train_store.num_graphs),
                 generator)

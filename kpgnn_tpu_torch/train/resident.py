@@ -76,7 +76,9 @@ class COOStore:
     """Per-graph padded COO tensors, leading dim Gs = num_graphs + 1:
     each graph's union edges, receiver-sorted, with local node ids in
     [0, n_slot), padded to e_slot edges whose attrs are all 0 (their
-    messages vanish, as collate's padding does)."""
+    messages vanish, as collate's padding does).  The pads are spread
+    over the slot's nodes in receiver order, so every slot's receivers,
+    and a gathered batch's, are sorted."""
 
     senders: torch.Tensor                 # (Gs, E) int32 local ids
     receivers: torch.Tensor               # (Gs, E) int32 local ids
@@ -235,7 +237,8 @@ def build_coo_store(graphs: Sequence[Graph], n_slot: Optional[int] = None,
     """The dataset as one COOStore on ``device`` (as in
     build_dense_store); slots default to the largest graph's nodes and
     edges.  Each graph's edges are sorted by local receiver (stable), so
-    a gathered batch is receiver-sorted within each graph's block."""
+    a gathered batch is receiver-sorted; the pads are spread over the
+    slot's nodes, each after its node's real edges."""
     device = resolve_device(str(device))
     Gs = len(graphs) + 1
     K = graphs[0].K
@@ -247,18 +250,27 @@ def build_coo_store(graphs: Sequence[Graph], n_slot: Optional[int] = None,
     receivers = np.zeros((Gs, e_slot), dtype=np.int32)
     edge_attr = np.zeros((Gs, e_slot, K), dtype=np.int16)
     edge_mask = np.zeros((Gs, e_slot), dtype=bool)
-    for i, g in enumerate(graphs):
-        e = g.num_edges
+    for i in range(Gs):
+        g = graphs[i] if i < len(graphs) else None
+        e = g.num_edges if g is not None else 0
         if e > e_slot:
             raise ValueError(f"graph with {e} edges > e_slot={e_slot}")
+        # the pads follow the real edges and spread over the slot's nodes:
+        # the sorted sum adds a node's entries one by one, so one node
+        # holding them all would be every batch's longest row
+        p = e_slot - e
+        v = np.arange(p, dtype=np.int32) * n_slot // max(p, 1)
         if e:
-            u = np.asarray(g.edge_index[0], np.int32)
-            v = np.asarray(g.edge_index[1], np.int32)
-            order = np.argsort(v, kind="stable")
-            senders[i, :e] = u[order]
-            receivers[i, :e] = v[order]
-            edge_attr[i, :e] = np.asarray(g.edge_attr).reshape(e, K)[order]
-            edge_mask[i, :e] = True
+            v = np.concatenate([np.asarray(g.edge_index[1], np.int32), v])
+        order = np.argsort(v, kind="stable")
+        real = order < e
+        receivers[i] = v[order]
+        edge_mask[i] = real
+        if e:
+            senders[i, real] = np.asarray(g.edge_index[0],
+                                          np.int32)[order[real]]
+            edge_attr[i, real] = np.asarray(g.edge_attr).reshape(
+                e, K)[order[real]]
     node_mask, graph_valid, stack_nodes = _stack_node_fields(graphs, n_slot)
     t = _tensors(device, senders=senders, receivers=receivers,
                  edge_attr16=edge_attr, edge_mask=edge_mask,
@@ -301,18 +313,24 @@ def gather_batch(store: DenseStore, idx: torch.Tensor) -> GraphBatch:
 
 def gather_coo_batch(store: COOStore, idx: torch.Tensor) -> GraphBatch:
     """On-device COO batch assembly: node slots as in dense mode, edge
-    ids offset by b * n_slot.  Padded edges keep all-zero attrs and a
-    false edge_mask, so they add nothing; their endpoints lie inside the
-    owning slot, which the masked norms and pools ignore."""
+    ids offset by b * n_slot, so the receivers stay sorted; their CSR
+    comes from one ``searchsorted`` a batch and spans every edge, so the
+    sums' backward rows are the receivers.  Padded edges keep all-zero
+    attrs and a false edge_mask, so they add nothing where they lie
+    (spread over their slot's nodes)."""
+    from ..ops.segment import segment_indptr
+
     B, n = idx.shape[0], store.n_slot
     offs = (torch.arange(B, device=idx.device, dtype=torch.int32)
             * n)[:, None]
+    receivers = (store.receivers[idx] + offs).reshape(-1)
     adj = COOAdj(
         senders=(store.senders[idx] + offs).reshape(-1),
-        receivers=(store.receivers[idx] + offs).reshape(-1),
+        receivers=receivers,
         edge_attr=store.edge_attr16[idx].int().reshape(B * store.e_slot,
                                                        -1),
-        edge_mask=store.edge_mask[idx].reshape(-1), n_nodes=B * n)
+        edge_mask=store.edge_mask[idx].reshape(-1), n_nodes=B * n,
+        indptr=segment_indptr(receivers, B * n), grad_rows=receivers)
     return _batch(store, idx, adj)
 
 
@@ -481,22 +499,27 @@ def gather_banded_batch(store: BandedStore, idx: torch.Tensor
     contiguously instead; every downstream op is mask-aware, so the
     layouts give the same losses).  Window masks stack along the tile
     axis; spill rows remap k·n + r -> k·(B·n) + b·n + r, which
-    interleaves graphs in the hop-major row space, so the plan clears
-    spill_sorted."""
+    interleaves graphs in the hop-major row space, so the batch's list is
+    sorted by row once on the device (stable: a row's spill keeps the
+    graph's order, collate_banded's) and its CSR built, for the sorted
+    spill sum."""
+    from ..ops.segment import segment_indptr
+
     B, n, K = idx.shape[0], store.n_slot, store.n_hops
     T, tile, win = store.live.shape[2:]
     live = store.live[idx].transpose(0, 1).reshape(K, B * T, tile, win)
-    sp_r = sp_s = sp_w = None
+    sp_r = sp_s = sp_w = sp_i = None
     if store.spill_rows is not None:
         offs = (torch.arange(B, device=idx.device, dtype=torch.int32)
                 * n)[:, None]
 
         def remap(a):
             return ((a // n) * (B * n) + offs + a % n).reshape(-1)
-        sp_r = remap(store.spill_rows[idx])
-        sp_s = remap(store.spill_senders[idx])
+        sp_r, order = torch.sort(remap(store.spill_rows[idx]), stable=True)
+        sp_s = remap(store.spill_senders[idx])[order]
         if store.spill_weights is not None:
-            sp_w = store.spill_weights[idx].reshape(-1)
+            sp_w = store.spill_weights[idx].reshape(-1)[order]
+        sp_i = segment_indptr(sp_r, K * B * n)
     adj = BandedAdj(
         live=live, counts1=store.counts1[idx].reshape(B * n, -1),
         countsk=(store.countsk[idx].reshape(B * n, K - 1, -1)
@@ -504,8 +527,9 @@ def gather_banded_batch(store: BandedStore, idx: torch.Tensor
         union_deg=store.union_deg[idx].reshape(-1),
         hop_deg=store.hop_deg[idx].reshape(B * n, K),
         spill_senders=sp_s, spill_rows=sp_r, spill_weights=sp_w,
-        spill_hop_ends=(), sender_scaled=store.sender_scaled,
-        spill_sorted=False, tile=tile, halo=store.halo, n_hops=K)
+        spill_indptr=sp_i, spill_hop_ends=(),
+        sender_scaled=store.sender_scaled, tile=tile, halo=store.halo,
+        n_hops=K)
     return _batch(store, idx, adj)
 
 

@@ -134,6 +134,71 @@ def test_node_sharded_steps_four_ranks_match_jax():
     assert all(r["halo"] > 1 for r in results[0])
 
 
+def _halo_rank(rank, world, batch, payload, cot):
+    """The halo exchange of this rank's shard of ``batch`` forward and
+    backward, on the CPU's sums and on the card's sorted-sum path with
+    the kernel launch replaced by its plain sum: [(out, grad)] x 2."""
+    from kpgnn_tpu_torch.ops import segment, spmm
+    from kpgnn_tpu_torch.ops.sharded_adjacency import halo_exchange
+    from tests.test_torch_segment_cuda import plain_launch
+
+    mesh = tmesh.make_mesh(("node",))
+    adj = partition_batch(batch, world, rank, mesh.group("node")).adj
+    n = adj.n_local
+    out = []
+    for card in (False, True):
+        if card:
+            segment._on_card = lambda t: True
+            spmm.launch_kernel = plain_launch
+        x = payload[rank * n:(rank + 1) * n].clone().requires_grad_(True)
+        ext = halo_exchange(adj, x)
+        (ext * cot[rank]).sum().backward()
+        out.append((ext.detach(), x.grad))
+    return out
+
+
+def test_halo_exchange_backward_matches_jax():
+    """P=2: the halo exchange's backward adds each owned row's halo
+    cotangents over the send plan sorted once at partition time
+    (``sorted_segment_sum``): on grid values, where every sum is exact,
+    equal to the JAX shard_map's transpose, on the CPU's sums and on the
+    card's path."""
+    import jax
+    from jax.sharding import PartitionSpec
+    from kpgnn_tpu.ops.sharded_adjacency import halo_exchange as jhalo
+    from kpgnn_tpu.parallel import make_mesh
+    from kpgnn_tpu.parallel.partition import (batch_pspecs,
+                                              partition_batch as jpartition)
+
+    P = 2
+    js, ts = graph_sets(6, 1)
+    _, e_pad = pads(ts, 6)
+    n_pad = -(-(sum(g.num_nodes for g in ts) + 1) // (32 * P)) * 32 * P
+    jb, tb = collate_both(js, ts, n_pad, e_pad, 7, False)
+    jpb = jpartition(jb, P)
+    n, B = n_pad // P, jpb.adj.send_rows.shape[-1]
+    rng = np.random.default_rng(4)
+    grid = lambda shape: (np.round(rng.uniform(-1, 1, shape) * 255)  # noqa
+                          / 256).astype(np.float32)
+    payload, cot = grid((n_pad, 3, 5)), grid((P, n + P * B, 3, 5))
+    f = jax.shard_map(lambda b, p: jhalo(b.adj, p),
+                      mesh=make_mesh(P, axis_names=("node",)),
+                      in_specs=(batch_pspecs(jpb, "node"),
+                                PartitionSpec("node")),
+                      out_specs=PartitionSpec("node"))
+    jext, vjp = jax.vjp(lambda p: f(jpb, p), payload)
+    (jgrad,) = vjp(cot.reshape(-1, 3, 5))
+    jext = np.asarray(jext).reshape(P, n + P * B, 3, 5)
+    jgrad = np.asarray(jgrad).reshape(P, n, 3, 5)
+    results = tmesh.spawn(_halo_rank, P, "gloo", args=(
+        tb, torch.tensor(payload), torch.tensor(cot)))
+    assert any(jpb.adj.boundary)          # real boundary rows
+    for rank, runs in enumerate(results):
+        for ext, grad in runs:
+            np.testing.assert_array_equal(ext.numpy(), jext[rank])
+            np.testing.assert_array_equal(grad.numpy(), jgrad[rank])
+
+
 def test_partition_batch_slices_node_rows():
     """A shard holds its node rows (and a node-level y's), the whole
     per-graph arrays, and masks whose union is the batch's."""
