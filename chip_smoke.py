@@ -62,7 +62,18 @@ Phases, each of which fails the run loudly:
      ``torch.use_deterministic_algorithms(True, warn_only=True)`` with
      CUBLAS_WORKSPACE_CONFIG=:4096:8, reported: the first differing step,
      the largest loss and parameter differences, and the ops that warn of
-     no deterministic implementation.  Then resident epochs,
+     no deterministic implementation.  Then [op_gap] (``op_gap_phase``,
+     reports, gates nothing): the flagship's first batch on the kernel
+     plan and one set of weights on the card and on the CPU, every
+     module's output (``utils/parity.capture_activations``, an eval and a
+     train forward) as max |card - CPU| over its scale, one line a module
+     in the order they return, beside the CPU's own gap between the COO
+     backend and the kernel plan; it names the first module, and the
+     first parameter's gradient in the order the backward finishes
+     them, whose card gap exceeds OP_GAP_FACTOR times that backend gap;
+     then each attention combine's steps (BiLSTM, logits, softmax,
+     weighted sum) against float64, each from a float64 input and
+     chained, with the BiLSTM also as a plain f32 cell.  Then resident epochs,
      one epoch each under default algorithms: ``--backend coo``
      (``--resident auto``: the log shows the rule's decision, which must be
      ``resident_rule``'s), ``--resident off`` and ``--resident on``;
@@ -3053,6 +3064,245 @@ def sorted_sum_times(ctx, legs):
     return entries
 
 
+OP_GAP_FACTOR = 10     # [op_gap]: a card gap this many times the CPU's own
+F32_ULP = 2.0 ** -23   # floor of a backend gap, one f32 ulp of the scale
+
+
+def combine_steps(comb, x, hop_major, feed=None):
+    """``nn/combine.AttentionCombine.forward`` a step at a time: each
+    step's output.  With ``feed`` (another run's outputs) each step reads
+    the previous step's output from ``feed`` instead of its own."""
+    import torch
+    ax = 0 if hop_major else 1
+
+    def read(k, own):
+        return own if feed is None else feed[k].to(own.device, own.dtype)
+    out = {"lstm": comb.attention_lstm(x, time_major=hop_major)}
+    out["logits"] = read("lstm", out["lstm"]).sum(-1)
+    out["softmax"] = torch.softmax(read("logits", out["logits"]), dim=ax)
+    out["weighted sum"] = (x * read("softmax", out["softmax"])[..., None]
+                           ).sum(dim=ax)
+    return out
+
+
+def plain_bilstm(bilstm, x, time_major):
+    """``ops/lstm.BiLSTM``'s output from plain torch ops (one matmul a
+    gate block a step, sigmoid and tanh), not the fused LSTM call."""
+    import torch
+    lstm, seq = bilstm.lstm, x if time_major else x.transpose(0, 1)
+    outs = []
+    for sfx, steps in (("", range(seq.shape[0])),
+                       ("_reverse", range(seq.shape[0] - 1, -1, -1))):
+        w_ih, w_hh, b_ih, b_hh = (getattr(lstm, f"{w}_l0{sfx}").to(x.dtype)
+                                  for w in ("weight_ih", "weight_hh",
+                                            "bias_ih", "bias_hh"))
+        h = c = seq.new_zeros(seq.shape[1], w_hh.shape[1])
+        ys = [None] * seq.shape[0]
+        for t in steps:
+            i, f, g, o = (seq[t] @ w_ih.T + b_ih + h @ w_hh.T + b_hh
+                          ).chunk(4, -1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = ys[t] = torch.sigmoid(o) * torch.tanh(c)
+        outs.append(torch.stack(ys))
+    out = torch.cat(outs, -1)
+    return out if time_major else out.transpose(0, 1)
+
+
+def combine_step_errors(ctx, model, batch, real):
+    """{combine: {step: (card error, CPU error)}}: each attention combine
+    of the CPU's train forward of ``batch``, its input captured, its steps
+    run on the card and on the CPU in f32, each step from the float64
+    result of the step before it ("from float64": the step's own
+    rounding) and from the same device's own previous step ("chained":
+    what it carries on), and the BiLSTM again as a plain cell
+    (``plain_bilstm``, outside the fused LSTM call), each against the
+    float64 chain, as max |error| over the largest |value| of the real
+    rows; and whether the split steps, chained, give
+    the module's own output bit for bit on each device ("split =
+    forward")."""
+    torch, dev = ctx.torch, ctx.dev
+    import copy
+
+    import numpy as np
+    from kpgnn_tpu_torch.nn.combine import AttentionCombine
+    m = copy.deepcopy(model)
+    inputs = {}
+
+    def record(name):
+        def pre(module, args, kwargs):
+            inputs[name] = (args[0].detach().clone(),
+                            kwargs["hop_major"] if "hop_major" in kwargs
+                            else args[1])
+        return pre
+    combs = {n: c for n, c in m.named_modules()
+             if isinstance(c, AttentionCombine)}
+    hooks = [c.register_forward_pre_hook(record(n), with_kwargs=True)
+             for n, c in combs.items()]
+    with torch.no_grad():
+        m(batch.to("cpu"), train=True)
+    for h in hooks:
+        h.remove()
+    out = {}
+    for name, (x, hm) in inputs.items():
+        with torch.no_grad():
+            ref = combine_steps(copy.deepcopy(combs[name]).double(),
+                                x.double(), hm)
+            errs = {}
+            for where in (dev, "cpu"):
+                comb = copy.deepcopy(combs[name]).to(where)
+                xd = x.to(where)
+                chained = combine_steps(comb, xd, hm)
+                errs.setdefault("split = forward", []).append(torch.equal(
+                    chained["weighted sum"], comb(xd, hm)))
+                plain = {"lstm": plain_bilstm(comb.attention_lstm, xd, hm)}
+                for how, steps in (("from float64", combine_steps(
+                        comb, xd, hm, feed=ref)), ("chained", chained),
+                        ("plain cell", plain)):
+                    for k, v in steps.items():
+                        if how == "chained" and k == "lstm":
+                            continue        # the same as from float64
+                        want = real(batch, ref[k].numpy())
+                        got = real(batch, v.double().cpu().numpy())
+                        scale = float(np.abs(want).max()) or 1.0
+                        errs.setdefault(f"{k} {how}", []).append(
+                            float(np.abs(got - want).max()) / scale)
+        out[name] = {k: tuple(v) for k, v in errs.items()}
+    return out
+
+
+def op_gap_phase(ctx):
+    """[op_gap]: where the card's flagship step first parts from the CPU's.
+    One full-width flagship f32 batch (the run's first, the kernel plan)
+    and one set of weights (``init_parameters`` from SEED) on the card and
+    on the CPU: ``utils/parity.capture_activations`` of an eval forward
+    (running statistics) and of a train forward (batch statistics, what
+    the step differentiates), and each module's max |card - CPU| over the
+    CPU output's largest |value| (real rows where a dimension is the
+    batch's nodes or graphs), in the order the modules return.  Beside it
+    the CPU's own backend gap: the same graphs on the COO backend against
+    the kernel plan, both on the CPU, floored at one f32 ulp.  Names the
+    first module whose card gap exceeds OP_GAP_FACTOR times its backend
+    gap, then the same for the parameters' gradients of the step, in the
+    order the backward finishes them (the last layer's first: an earlier
+    layer's gradient carries every later layer's gap) and the five
+    furthest apart.  Then each attention combine's steps (its BiLSTM, the
+    logits, the softmax, the weighted sum; ``combine_step_errors``) from
+    the combine's input in the CPU's train forward, on the card and on
+    the CPU in f32, against float64: each step from the float64 result
+    of the step before it, so its own rounding shows apart from what
+    reaches it, and chained; the BiLSTM also as a plain cell.  Reports
+    and does not gate."""
+    torch, dev = ctx.torch, ctx.dev
+    import copy
+
+    import numpy as np
+    from kpgnn_tpu_torch.models.factory import make_model
+    from kpgnn_tpu_torch.nn.inits import init_parameters
+    from kpgnn_tpu_torch.train.loader import GraphLoader
+    from kpgnn_tpu_torch.train.loop import _masked_loss
+    from kpgnn_tpu_torch.utils.parity import capture_activations
+
+    class TrainForward(torch.nn.Module):
+        """capture_activations runs ``model(batch, train=False)``; this
+        wrapper's forward is its model's train-mode forward."""
+
+        def __init__(self, model):
+            super().__init__()
+            self.m = model
+
+        def forward(self, batch, train=False):
+            return self.m(batch, train=True)
+
+    t0 = time.perf_counter()
+    pb = ctx.tl.example()
+    cb = GraphLoader(ctx.tl.graphs, BATCH, mode="coo").example()
+    model = init_parameters(make_model(ctx.mcfg), SEED)
+
+    def real(batch, a):
+        """``a`` with its node and graph axes cut to the real rows."""
+        for ax, n in enumerate(a.shape):
+            for size, mask in ((batch.n_pad, batch.node_mask),
+                               (batch.graph_mask.shape[0], batch.graph_mask)):
+                if n == size:
+                    a = np.compress(mask.cpu().numpy(), a, axis=ax)
+                    break
+        return a
+
+    def e(x):
+        return "n/a" if x is None else f"{x:.2e}"
+
+    def gap(a, b):
+        if a is None or b is None or a.shape != b.shape:
+            return None
+        scale = float(np.abs(b).max()) if b.size else 0.0
+        return float(np.abs(a - b).max()) / scale if scale > 0 else 0.0
+
+    def capture(train, batch, device):
+        m = copy.deepcopy(model).to(device)
+        acts = capture_activations(TrainForward(m) if train else m,
+                                   batch.to(device))
+        return {k[2:] if train else k: real(batch, v)
+                for k, v in acts.items() if k != "__call__" or not train}
+
+    lines, named = [], {}
+    for mode in ("eval", "train"):
+        train = mode == "train"
+        card = capture(train, pb, dev)
+        cpu = capture(train, pb, "cpu")
+        coo = capture(train, cb, "cpu")
+        first = None
+        for k, v in cpu.items():
+            g, b = gap(card.get(k), v), gap(coo.get(k), v)
+            floor = max(b or 0.0, F32_ULP)
+            lines.append(f"[op_gap] {mode} {k}: card {e(g)}, cpu backends "
+                         f"{e(b)}")
+            if first is None and g is not None and g > OP_GAP_FACTOR * floor:
+                first = (k, g, b)
+        named[mode] = first
+
+    def grads(batch, device):
+        """The step's gradients, in the order the backward finishes
+        them."""
+        m = copy.deepcopy(model).to(device)
+        b = batch.to(device)
+        done = []
+        hooks = [p.register_post_accumulate_grad_hook(
+            lambda p, n=n: done.append(n)) for n, p in m.named_parameters()]
+        lsum, cnt = _masked_loss(m(b, train=True), b.y, b.graph_mask, "l1")
+        (lsum / cnt).backward()
+        for h in hooks:
+            h.remove()
+        params = dict(m.named_parameters())
+        return {n: params[n].grad.detach().cpu().numpy() for n in done}
+    gcard, gcpu, gcoo = grads(pb, dev), grads(pb, "cpu"), grads(cb, "cpu")
+    gaps = {n: (gap(gcard[n], g), gap(gcoo.get(n), g))
+            for n, g in gcpu.items()}
+    steps = combine_step_errors(ctx, model, pb, real)
+    gfirst = next(((n, g, b) for n, (g, b) in gaps.items()
+                   if g > OP_GAP_FACTOR * max(b or 0.0, F32_ULP)), None)
+    for line in lines:
+        log(line)
+    for mode, first in named.items():
+        log(f"[op_gap] {mode} forward: first module past {OP_GAP_FACTOR}x "
+            "the CPU's backend gap: " + (
+                "none" if first is None else
+                f"{first[0]} (card {e(first[1])}, cpu backends "
+                f"{e(first[2])})"))
+    top = sorted(gaps.items(), key=lambda kv: -kv[1][0])[:5]
+    for name, errs in steps.items():
+        log(f"[op_gap] {name} steps, error against float64 (card / cpu): "
+            + ", ".join(
+                f"{k} {c} / {u}" if isinstance(c, bool) else
+                f"{k} {e(c)} / {e(u)}" for k, (c, u) in errs.items()))
+    log(f"[op_gap] gradients in backward order: first past {OP_GAP_FACTOR}x"
+        " the CPU's backend gap: " + ("none" if gfirst is None else
+                                 f"{gfirst[0]} (card {e(gfirst[1])}, cpu "
+                                 f"backends {e(gfirst[2])})")
+        + "; furthest apart: " + ", ".join(
+            f"{n} card {e(g)} / cpu backends {e(b)}" for n, (g, b) in top)
+        + f"; {time.perf_counter() - t0:.1f} s")
+
+
 def determinism_phase(ctx):
     """[determinism]: DET_STEPS steps twice from one seed under default
     algorithms, which must repeat bit for bit, one line a backend: the
@@ -3840,6 +4090,8 @@ def main():
         mark("api")
         det_runs = determinism_phase(ctx)
         mark("determinism")
+        op_gap_phase(ctx)
+        mark("op_gap")
         # ---- 3b. --bf16 on the main path: the kernel's bf16 variants ----
         fused_b = spmm.variant_name(torch.bfloat16, True, True)
         gather_b = spmm.variant_name(torch.bfloat16, True, False)
