@@ -27,8 +27,20 @@ Phases, each of which fails the run loudly:
      own (``kernel_tests``: the JAX package's heavy-row, hub,
      multi-window and graph-sorted cases, gather and fused, f32 and bf16,
      forward and backward, against the plain version and bit for bit on
-     a repeat; and ``segment_sum``'s sums, the same in every run and the
-     CPU's where they are exact): exit 0 with more than 0 passed;
+     a repeat; ``segment_sum``'s sums, the same in every run and the
+     CPU's where they are exact; and the BiLSTM kernel against its plain
+     version at every (T, H) its source lists): exit 0 with more than 0
+     passed.  Then [lstm] (``lstm_phase``): the BiLSTM recurrence kernel
+     (csrc/bilstm.cu, built in phase 1 beside the gather) at the main
+     path's shapes (the flagship's, QM9's and KPGINPrime K=16's attention
+     combine and the flagship with JK attention), f32 and bf16, forward
+     and backward against the plain version and float64, a repeat bit
+     for bit, an unsupported hidden size raising, and its times beside
+     its byte bound (the bytes the function needs; the saved activations
+     apart, with the eval forward's time that saves none), the plain
+     version's and cuDNN's (``torch._VF.lstm``, the one call of cuDNN's
+     LSTM left, held against the kernel plus the matmuls it leaves to
+     ``torch.matmul``);
   3. train  — write a ZINC-format fixture (tools/make_zinc_fixture.py) and
      run ``kpgnn_tpu_torch.scripts.train_zinc.main`` at the flagship's
      full width (KPGINPlus K=8 L=8 H=104, attention combine, JK concat,
@@ -42,8 +54,11 @@ Phases, each of which fails the run loudly:
      the same bf16 step on the CPU and on --backend coo --bf16 on the
      card and within 5e-2 of the f32 run's, and f32 parameters and norm
      statistics after it; in one bf16 train step every linear map and
-     LSTM of the K-hop layers returns bf16, and its profile shows
-     cuDNN's bf16 LSTM kernels and a bf16 GEMM.  Before ``--bf16``,
+     LSTM of the K-hop layers returns bf16, the BiLSTM kernel's bf16
+     variants launch once a BiLSTM forward and backward, and its profile
+     shows them, no cuDNN RNN kernel, and a bf16 GEMM.  Every script run
+     launches the BiLSTM kernel (csrc/bilstm.cu) once a BiLSTM forward
+     and once a backward.  Before ``--bf16``,
      [api] (``api_phase``): the flagship at full width through the
      package's top-level names only (kt.KHopConfig / kt.extract_khop ->
      kt.GraphLoader(mode="pallas") -> kt.make_model(kt.ModelConfig) ->
@@ -73,7 +88,11 @@ Phases, each of which fails the run loudly:
      them, whose card gap exceeds OP_GAP_FACTOR times that backend gap;
      then each attention combine's steps (BiLSTM, logits, softmax,
      weighted sum) against float64, each from a float64 input and
-     chained, with the BiLSTM also as a plain f32 cell.  Then resident epochs,
+     chained, with the BiLSTM also as a plain f32 cell.  Then [prefetch]
+     (``prefetch_phase``): the flagship's per-batch ``Trainer.fit``
+     on its plain ``b.to(device)`` train stream and with that stream
+     through ``train/loop.device_prefetch``, in turns: step losses bit
+     for bit equal, host ms a step of each.  Then resident epochs,
      one epoch each under default algorithms: ``--backend coo``
      (``--resident auto``: the log shows the rule's decision, which must be
      ``resident_rule``'s), ``--resident off`` and ``--resident on``;
@@ -197,8 +216,8 @@ Phases, each of which fails the run loudly:
      bf16 within BF16_RTOL of the CPU's bf16 banded step and of the
      pallas --bf16 run's), one Adam step of the first batch against the
      same step on pallas and on coo on the card under the gradient gate
-     (``card_gate``; the card-against-CPU gate of the three backends is
-     logged as a witness), the logged resident decision and store bytes
+     (``card_gate``) and each of the three against the CPU under the
+     gradient gate, the logged resident decision and store bytes
      against ``resident_rule`` and ``banded_store_nbytes``, the first
      batch gathered from the BandedStore against the collated one (loss
      and predictions, rtol 1e-5), the bf16 window product a GEMM kernel
@@ -336,6 +355,7 @@ too) replay their branches (``relu_branches``), and every input whose
 branch differs must lie within 1e-4 of its call's largest |input| of 0.
 """
 import contextlib
+import dataclasses
 import importlib.util
 import io
 import json
@@ -938,6 +958,16 @@ def host_step_ms(torch, step, warmup=3, steps=10):
     return (time.perf_counter() - t0) / steps * 1e3
 
 
+def rnn_kernels(names):
+    """(the port's BiLSTM kernels, every other RNN or LSTM kernel: cuDNN's)
+    among the profiler's kernel ``names``."""
+    names = list(names)
+    ours = [k for k in names if "bilstm_" in k]
+    other = [k for k in names if k not in ours
+             and ("rnn" in k.lower() or "lstm" in k.lower())]
+    return ours, other
+
+
 def profile_step(torch, step, step_ms, label, steps=3):
     """Device time per train step by kernel (torch.profiler), the
     device's idle share against the unprofiled step time, and the time of
@@ -966,9 +996,10 @@ def profile_step(torch, step, step_ms, label, steps=3):
     log(f"[profile] {label} train step: indexing_backward_kernel "
         + (", ".join(f"{e.self_device_time_total / 1e3 / steps:.3f} ms/step "
                      f"(x{e.count // steps})" for e in ib) if ib else "none"))
-    rnn = sorted({e.key[:60] for e in kernels
-                  if "rnn" in e.key.lower() or "lstm" in e.key.lower()})
-    log(f"[profile] {label} train step: LSTM kernels {rnn or 'none'}")
+    ours, other = rnn_kernels(e.key for e in kernels)
+    log(f"[profile] {label} train step: LSTM kernels: the port's "
+        f"{sorted({k[:60] for k in ours}) or 'none'}, any other RNN or LSTM "
+        f"kernel (cuDNN's) {sorted({k[:60] for k in other}) or 'none'}")
     log(f"[profile] {label} train step: device busy {busy_ms:.3f} ms of "
         f"{step_ms:.2f} ms (idle share {1 - busy_ms / step_ms:.3f}), "
         f"{launches:.0f} kernel launches; top kernels by device ms/step: "
@@ -1627,12 +1658,12 @@ def banded_train_phase(ctx):
     to the CPU's on banded and to --backend coo's on the card (rtol
     1e-4), and to the card's pallas run's ([train]).  Then one Adam step
     of the first batch on the card against the same step on pallas and
-    on coo on the card, under the gradient gate (``card_gate``); and, as
-    a witness (logged, not gated), each of the three against the CPU
-    under the gradient gate: on the flagship step the card and the CPU
-    part at 0.8-1.2 of the gate's bound whatever the backend (PERF.md
-    §6), so the CPU comparison cannot single out the aggregation.
-    Returns the run's rows."""
+    on coo on the card, under the gradient gate (``card_gate``); and each
+    of the three against the CPU under the gradient gate.  The CPU
+    comparison was a witness while cuDNN's LSTM put the card's flagship
+    step at 0.8-1.2 of the gate's bound on every backend; on the BiLSTM
+    kernel it sits at 0.16-0.31 (PERF.md §6) and gates again.  Returns
+    the run's rows."""
     sl = SimpleNamespace(**dict(
         vars(ctx.zinc), L=0, cpu_mode="banded",
         argv=train_argv(ctx.work, os.path.join(ctx.work, "banded"), "cuda")
@@ -1662,10 +1693,10 @@ def banded_train_phase(ctx):
                   else {})
         ctx.gradient_gate("banded", f"KPGINPlus K={K} L={L} {name}, card "
                           "against the CPU", ctx.mcfg, loader, hp, "l1",
-                          expect, gated=False)
+                          expect)
         worst[name] = ctx.gradient_gate.worst
-    log("[banded] witness, the flagship step on the card against the CPU, "
-        "worst |err| / tol by backend: "
+    log("[banded] the flagship step on the card against the CPU, worst "
+        "|err| / tol by backend: "
         + ", ".join(f"{k} {v:.2f}" for k, v in worst.items()))
     return rows
 
@@ -2779,7 +2810,8 @@ def tools_phase(ctx):
 
 
 CARD_TESTS = ("tests/test_torch_kernel_cuda.py",
-              "tests/test_torch_segment_cuda.py")
+              "tests/test_torch_segment_cuda.py",
+              "tests/test_torch_lstm_cuda.py")
 
 
 def kernel_tests():
@@ -3064,6 +3096,228 @@ def sorted_sum_times(ctx, legs):
     return entries
 
 
+LSTM_ITERS = 100       # [lstm]: timed calls a variant and shape
+LSTM = dict(route="cuda", source="kpgnn_tpu_torch/csrc/bilstm.cu",
+            # no TPU kernel: the JAX package's lax.scan, and cuDNN here
+            replaces="kpgnn_tpu/ops/lstm.py:100")
+
+
+def lstm_bound_ms(T, B, H, nbytes, kind):
+    """(the least time of one BiLSTM kernel launch on the card in ms, what
+    bounds it): the bytes the function needs to move (each input read
+    once, each output written once), given that the forward keeps y and c
+    for the backward, over HBM_BYTES_PER_S against its f32 operations over
+    F32_FLOPS.  Forward ("fwd"): reads xg (T, B, 8H), W_hh and b_hh,
+    writes y and c (T, B, 2H each); 8H^2 + 21H operations a sequence,
+    direction and step (the gate products, sums, nonlinearities and the
+    cell).  Backward ("bwd"): reads dy, y and c (T, B, 2H each), xg (to
+    recompute the gates) and W_hh, writes dxg (T, B, 8H) and dW_hh and
+    db_hh in f32; 16H^2 + 24H operations (dh, dW_hh, the gate
+    gradients).  On either side the kernel's own choices are not counted:
+    the forward's saved activations (``lstm_saved_bytes``, which the
+    backward reads in place of xg, the same bytes) and the backward's
+    per-block partials."""
+    tb = T * B
+    if kind == "fwd":
+        moved = (tb * 8 * H + 2 * tb * 2 * H + 8 * H * (H + 1)) * nbytes
+        ops = 2 * tb * (8 * H * H + 21 * H)
+    else:
+        moved = ((3 * tb * 2 * H + 2 * tb * 8 * H + 8 * H * H) * nbytes
+                 + 2 * (4 * H * H + 4 * H) * 4)
+        ops = 2 * tb * (16 * H * H + 24 * H)
+    by_bytes = moved / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                            "operations")
+
+
+def lstm_saved_bytes(T, B, H, nbytes):
+    """Bytes of the activations (i, f, g, o a step, (T, B, 8H)) that the
+    kernel's forward saves for its backward beyond y and c."""
+    return T * B * 8 * H * nbytes
+
+
+def lstm_phase(ctx):
+    """[lstm]: the BiLSTM kernel (csrc/bilstm.cu) against its plain version
+    on the card, at the main path's shapes: for each of ``ctx.lstm_cases``
+    ({label: (model config, batch)}) one train step of the model
+    (initialized from SEED) on the card, its BiLSTMs' inputs recorded, and
+    the call with the longest sequence taken: its recurrence input xg
+    (``input_projection`` of the recorded input with the module's
+    weights) and a random dy, in f32 and in bf16.  The kernel's y, dxg,
+    dW_hh and db_hh (``recurrence`` under autograd) against the plain
+    version in the same dtype and in float64 on the same values: the
+    kernel's largest error from float64 at most twice the plain
+    version's own plus one ulp of the dtype at the output's scale (the
+    two sum the gate products in other orders; the kernel rounds where
+    the plain cell's ops round, and its bf16 backward computes in f32);
+    a second run equal bit for bit.  Times on CUDA events (LSTM_ITERS
+    calls): the forward launch (saving the backward's inputs, and an eval
+    forward that saves nothing) and the backward launch (with the sum of
+    its partials), beside their byte bound, the plain version's
+    (``recurrence_reference``, ``bilstm_backward_reference``) and cuDNN's
+    (``torch._VF.lstm`` on the same sequence and weights: its forward in
+    train mode, and its backward through autograd).  cuDNN's calls also
+    do the products the kernel leaves to ``torch.matmul`` (forward: the
+    input projection; backward: dx, dW_ih and db_ih), timed apart as
+    ``projection_ms``.  Then a hidden size of 17 must raise.  Returns
+    ({(label, dtype name, "fwd" | "bwd"): kernels-line entry without its
+    launches}, {label: BiLSTM kernel launches by (variant, T, H) of the
+    train step})."""
+    torch, dev = ctx.torch, ctx.dev
+    from kpgnn_tpu_torch.models.factory import make_model
+    from kpgnn_tpu_torch.nn.inits import init_parameters
+    from kpgnn_tpu_torch.ops import lstm
+    from kpgnn_tpu_torch.train.loop import train_step
+    from kpgnn_tpu_torch.train.state import make_optimizer
+
+    def run(fn, xg, w_hh, b_hh, dy):
+        leaves = [t.detach().clone().requires_grad_() for t in
+                  (xg, w_hh, b_hh)]
+        y = fn(*leaves)
+        y.backward(dy.to(y.dtype))
+        return [y.detach()] + [t.grad for t in leaves]
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ulp = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -8}
+    entries, step_launches = {}, {}
+    for label, (cfg, batch) in ctx.lstm_cases.items():
+        model = init_parameters(make_model(cfg), SEED).to(dev)
+        calls = []
+
+        def record(mod, args, kwargs):
+            tm = kwargs.get("time_major", args[1] if len(args) > 1
+                            else False)
+            calls.append((mod, args[0].detach().float(), tm))
+        hooks = [m.register_forward_pre_hook(record, with_kwargs=True)
+                 for m in model.modules() if isinstance(m, lstm.BiLSTM)]
+        lstm.reset_launch_counts()
+        try:
+            train_step(model, make_optimizer(model.parameters(), 1e-3),
+                       batch.to(dev))
+        finally:
+            for h in hooks:
+                h.remove()
+        torch.cuda.synchronize()
+        step_launches[label] = +Counter(lstm.launches)
+        per_variant = Counter()
+        for (vname, _, _), n in step_launches[label].items():
+            per_variant[vname] += n
+        check(dict(per_variant) == {
+            lstm.variant_name("fwd", torch.float32): len(calls),
+            lstm.variant_name("bwd", torch.float32): len(calls)},
+            f"lstm {label}: the train step launched {dict(per_variant)} "
+            f"for {len(calls)} BiLSTM calls")
+        mod, x, tm = max(calls, key=lambda c: c[1].shape[0 if c[2] else 1])
+        seq = x if tm else x.transpose(0, 1)
+        for dt in (torch.float32, torch.bfloat16):
+            dname = "f32" if dt == torch.float32 else "bf16"
+            w_ih, w_hh, b_ih, b_hh = (t.detach() for t in mod.weights(dt))
+            with torch.no_grad():
+                xg = lstm.input_projection(seq.to(dt), w_ih, b_ih
+                                           ).contiguous()
+            T, B, _ = xg.shape
+            H = w_hh.shape[2]
+            dy = torch.randn(T, B, 2 * H, device=dev, generator=gen).to(dt)
+            exact = run(lstm.recurrence_reference,
+                        *(t.double() for t in (xg, w_hh, b_hh, dy)))
+            plain = run(lstm.recurrence_reference, xg, w_hh, b_hh, dy)
+            got = run(lstm.recurrence, xg, w_hh, b_hh, dy)
+            again = run(lstm.recurrence, xg, w_hh, b_hh, dy)
+            torch.cuda.synchronize()
+            notes, worst = [], {"fwd": 0.0, "bwd": 0.0}
+            for name, g, p, e, a in zip(("y", "dxg", "dW_hh", "db_hh"), got,
+                                        plain, exact, again):
+                err = float((g.double() - e).abs().max())
+                own = float((p.double() - e).abs().max())
+                diff = float((g.double() - p.double()).abs().max())
+                tol = 2 * own + ulp[dt] * float(e.abs().max())
+                kind = "fwd" if name == "y" else "bwd"
+                worst[kind] = max(worst[kind], diff)
+                notes.append(f"{name} kernel {err:.2e}, plain {own:.2e} "
+                             f"from float64 (tol {tol:.2e}), kernel - plain "
+                             f"{diff:.2e}")
+                check(err <= tol, f"lstm {label} {dname} {name}: the "
+                      f"kernel errs {err:.3e} from float64, the plain "
+                      f"version {own:.3e} (tol {tol:.3e})")
+                check(torch.equal(g, a), f"lstm {label} {dname} {name}: a "
+                      f"second run differs")
+            sx = seq.to(dt)
+            with torch.no_grad():
+                y, act, cst = lstm.launch_forward(xg, w_hh, b_hh, save=True)
+                eval_ms = time_ms(torch, lambda _: lstm.launch_forward(
+                    xg, w_hh, b_hh, save=False), [None], iters=LSTM_ITERS)
+                # the products outside the kernel; act stands in for dxg
+                # (the same shape and dtype) in the backward's
+                proj_ms = {
+                    "fwd": time_ms(torch, lambda _: lstm.input_projection(
+                        sx, w_ih, b_ih), [None], iters=LSTM_ITERS),
+                    "bwd": time_ms(torch, lambda _: (
+                        act @ w_ih, act.flatten(0, 1).T @ sx.flatten(0, 1),
+                        act.sum((0, 1))), [None], iters=LSTM_ITERS)}
+                ms = {"fwd": time_ms(torch, lambda _: lstm.launch_forward(
+                    xg, w_hh, b_hh, save=True), [None], iters=LSTM_ITERS),
+                    "bwd": time_ms(torch, lambda _: lstm.launch_backward(
+                        dy, y, act, cst, w_hh), [None], iters=LSTM_ITERS)}
+                plain_ms = {
+                    "fwd": time_ms(torch, lambda _: lstm.recurrence_reference(
+                        xg, w_hh, b_hh), [None], iters=LSTM_ITERS),
+                    "bwd": time_ms(torch, lambda _:
+                                   lstm.bilstm_backward_reference(
+                                       xg, w_hh, b_hh, dy), [None],
+                                   iters=LSTM_ITERS)}
+            flat = [p.detach().to(dt).requires_grad_()
+                    for p in mod.lstm._flat_weights]
+            sq = seq.to(dt).detach().requires_grad_()
+            h0 = sq.new_zeros(2, B, H)
+
+            def cudnn(_=None):
+                return torch._VF.lstm(sq, (h0, h0), flat, True, 1, 0.0,
+                                      True, True, False)[0]
+            yc = cudnn()
+            lib_ms = {"fwd": time_ms(torch, cudnn, [None], iters=LSTM_ITERS),
+                      "bwd": time_ms(torch, lambda _: torch.autograd.grad(
+                          yc, [sq] + flat, dy, retain_graph=True), [None],
+                          iters=LSTM_ITERS)}
+            times = []
+            for kind in ("fwd", "bwd"):
+                bound, by = lstm_bound_ms(T, B, H, xg.element_size(), kind)
+                vname = lstm.variant_name(kind, dt)
+                entries[label, dname, kind] = dict(
+                    name=f"{vname} T={T} H={H} {label}", variant=vname,
+                    **LSTM, shape=f"{label}: T={T}, B={B}, F={seq.shape[2]}, "
+                    f"H={H}", max_abs_err=worst[kind], ms=ms[kind],
+                    plain_ms=plain_ms[kind], bound_ms=bound, bound_by=by,
+                    library_ms=lib_ms[kind], projection_ms=proj_ms[kind],
+                    T=T, H=H)
+                extra = ""
+                if kind == "fwd":
+                    saved = lstm_saved_bytes(T, B, H, xg.element_size())
+                    extra = (f"; eval forward, nothing saved, {eval_ms:.4f} "
+                             f"ms; the saved activations {saved / 1e6:.2f} "
+                             f"MB, {saved / HBM_BYTES_PER_S * 1e3:.4f} ms "
+                             f"at the memory rate")
+                times.append(f"{kind} {ms[kind]:.4f} ms (bound "
+                             f"{bound:.4f} by {by}{extra}, plain "
+                             f"{plain_ms[kind]:.4f}, cuDNN "
+                             f"{lib_ms[kind]:.4f} against kernel + "
+                             f"matmuls {ms[kind] + proj_ms[kind]:.4f})")
+            log(f"[lstm] {label} {dname}: T={T} B={B} F={seq.shape[2]} "
+                f"H={H} ({'time' if tm else 'batch'}-major); "
+                + "; ".join(notes) + "; a repeat bit for bit; times: "
+                + ", ".join(times))
+    xg17 = torch.zeros(2, 3, 8 * 17, device=dev)
+    try:
+        lstm.recurrence(xg17, torch.zeros(2, 68, 17, device=dev),
+                        torch.zeros(2, 68, device=dev))
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    check(raised is not None, "lstm: a hidden size of 17 did not raise")
+    log(f"[lstm] hidden size 17 raises: {raised}")
+    return entries, step_launches
+
+
 OP_GAP_FACTOR = 10     # [op_gap]: a card gap this many times the CPU's own
 F32_ULP = 2.0 ** -23   # floor of a backend gap, one f32 ulp of the scale
 
@@ -3085,29 +3339,6 @@ def combine_steps(comb, x, hop_major, feed=None):
     return out
 
 
-def plain_bilstm(bilstm, x, time_major):
-    """``ops/lstm.BiLSTM``'s output from plain torch ops (one matmul a
-    gate block a step, sigmoid and tanh), not the fused LSTM call."""
-    import torch
-    lstm, seq = bilstm.lstm, x if time_major else x.transpose(0, 1)
-    outs = []
-    for sfx, steps in (("", range(seq.shape[0])),
-                       ("_reverse", range(seq.shape[0] - 1, -1, -1))):
-        w_ih, w_hh, b_ih, b_hh = (getattr(lstm, f"{w}_l0{sfx}").to(x.dtype)
-                                  for w in ("weight_ih", "weight_hh",
-                                            "bias_ih", "bias_hh"))
-        h = c = seq.new_zeros(seq.shape[1], w_hh.shape[1])
-        ys = [None] * seq.shape[0]
-        for t in steps:
-            i, f, g, o = (seq[t] @ w_ih.T + b_ih + h @ w_hh.T + b_hh
-                          ).chunk(4, -1)
-            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-            h = ys[t] = torch.sigmoid(o) * torch.tanh(c)
-        outs.append(torch.stack(ys))
-    out = torch.cat(outs, -1)
-    return out if time_major else out.transpose(0, 1)
-
-
 def combine_step_errors(ctx, model, batch, real):
     """{combine: {step: (card error, CPU error)}}: each attention combine
     of the CPU's train forward of ``batch``, its input captured, its steps
@@ -3115,7 +3346,7 @@ def combine_step_errors(ctx, model, batch, real):
     result of the step before it ("from float64": the step's own
     rounding) and from the same device's own previous step ("chained":
     what it carries on), and the BiLSTM again as a plain cell
-    (``plain_bilstm``, outside the fused LSTM call), each against the
+    (``ops/lstm.plain_bilstm``, outside the kernel), each against the
     float64 chain, as max |error| over the largest |value| of the real
     rows; and whether the split steps, chained, give
     the module's own output bit for bit on each device ("split =
@@ -3125,6 +3356,7 @@ def combine_step_errors(ctx, model, batch, real):
 
     import numpy as np
     from kpgnn_tpu_torch.nn.combine import AttentionCombine
+    from kpgnn_tpu_torch.ops.lstm import plain_bilstm
     m = copy.deepcopy(model)
     inputs = {}
 
@@ -3303,6 +3535,61 @@ def op_gap_phase(ctx):
         + f"; {time.perf_counter() - t0:.1f} s")
 
 
+def prefetch_phase(ctx):
+    """[prefetch]: the Trainer's per-batch train stream as it runs
+    (``b.to(device)`` on the dispatch thread) against the same stream
+    through ``train/loop.device_prefetch`` (a helper thread runs the
+    copies, PREFETCH_DEPTH batches ahead), the flagship on the kernel
+    plan, resident off: a warm-up fit, then fits of 2 epochs without
+    evaluation in the order plain, prefetch, prefetch, plain, twice.
+    Every fit's step losses must equal the warm-up's bit for bit; each
+    leg's host ms a step is its second epoch's seconds over its steps
+    (the epoch ends in a sync)."""
+    torch = ctx.torch
+    import numpy as np
+    from kpgnn_tpu_torch.models.factory import make_model
+    from kpgnn_tpu_torch.train import loop
+    from kpgnn_tpu_torch.train.config import TrainConfig
+    from kpgnn_tpu_torch.train.loader import GraphLoader
+
+    real = loop.train_epoch
+
+    def prefetched(model, opt, batches, *args, **kw):
+        return real(model, opt, loop.device_prefetch(batches, ctx.dev),
+                    *args, **kw)
+
+    def fit(epoch_fn):
+        loop.train_epoch = epoch_fn
+        try:
+            tl = GraphLoader(ctx.zinc_train, BATCH, shuffle=True, seed=SEED,
+                             **ctx.lk)
+            cfg = TrainConfig(lr=ctx.args.lr, num_epochs=2,
+                              batch_size=BATCH, seed=SEED, patience=100)
+            hist = loop.Trainer(make_model(ctx.mcfg), cfg, loss="l1",
+                                device=str(ctx.dev), resident="off").fit(
+                                    tl)[1]["history"]
+        finally:
+            loop.train_epoch = real
+        return (np.concatenate([r["step_losses"] for r in hist]),
+                hist[1]["seconds"] / len(hist[1]["step_losses"]) * 1e3)
+
+    want, _ = fit(real)
+    ms = {"plain": [], "prefetch": []}
+    for leg in ("plain", "prefetch", "prefetch", "plain") * 2:
+        losses, step_ms = fit(real if leg == "plain" else prefetched)
+        check(np.array_equal(losses, want), f"prefetch: the {leg} leg's "
+              f"step losses differ from the warm-up fit's")
+        ms[leg].append(step_ms)
+    ratios = sorted(p / q for p, q in zip(ms["prefetch"], ms["plain"]))
+    log(f"[prefetch] flagship per-batch Trainer.fit, {len(want)} steps a "
+        f"fit, every leg's step losses bit for bit the same; host ms a "
+        f"step (second epoch): plain b.to(device) "
+        + ", ".join(f"{x:.3f}" for x in ms["plain"]) + "; device_prefetch "
+        + ", ".join(f"{x:.3f}" for x in ms["prefetch"])
+        + "; prefetch / plain, the i-th leg of each, sorted: "
+        + ", ".join(f"{r:.4f}" for r in ratios))
+
+
 def determinism_phase(ctx):
     """[determinism]: DET_STEPS steps twice from one seed under default
     algorithms, which must repeat bit for bit, one line a backend: the
@@ -3380,6 +3667,7 @@ def main():
     from kpgnn_tpu_torch.nn.basic import TorchLinear
     from kpgnn_tpu_torch.nn.inits import init_parameters
     from kpgnn_tpu_torch.ops import cuda_lib, segment, spmm
+    from kpgnn_tpu_torch.ops import lstm as lstm_ops
     from kpgnn_tpu_torch.ops.lstm import BiLSTM
     from kpgnn_tpu_torch.prep import native
     from kpgnn_tpu_torch.prep.khop import extract_graphs
@@ -3408,7 +3696,7 @@ def main():
         marks.append((name, time.perf_counter()))
 
     # ---- 1. build ----
-    secs = cuda_lib.build_all([spmm.KERNEL_SOURCE])
+    secs = cuda_lib.build_all([spmm.KERNEL_SOURCE, lstm_ops.KERNEL_SOURCE])
     hashes = {s: cuda_lib.source_hash(s) for s in secs}
     log(f"[build] {kind} ({card}); source hash {json.dumps(hashes)}; nvcc "
         f"seconds: {json.dumps(secs)}")
@@ -3965,6 +4253,15 @@ def main():
         check(rc == 0 and passed > 0,
               f"kernel tests: exit {rc}, {passed} passed:\n{out}")
         mark("kernel tests")
+        # ---- 2c. the BiLSTM kernel at the main path's shapes ----
+        lstm_entries, lstm_steps = lstm_phase(SimpleNamespace(
+            torch=torch, dev=dev, lstm_cases={
+                "flagship combine": (mcfg, fb),
+                "qm9 combine": (qmcfg, qfb),
+                f"qm9 KPGINPrime K={PRIME_K} combine": (pmcfg, pfb),
+                "flagship JK attention": (dataclasses.replace(
+                    mcfg, JK="attention"), fb)}))
+        mark("lstm")
         fused_v = spmm.variant_name(torch.float32, True, True)
         gather_v = spmm.variant_name(torch.float32, True, False)
 
@@ -4015,12 +4312,14 @@ def main():
                 if getattr(sl, "on_epoch", None):
                     sl.on_epoch(epoch, model, row)
             spmm.reset_launch_counts()
+            lstm_ops.reset_launch_counts()
             t0 = time.perf_counter()
             result = sl.main(sl.argv, epoch_callback=on_epoch)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             v = dict(spmm.gather_segment_sum.variant_launches)
             w = +Counter(spmm.gather_segment_sum.width_launches)
+            sl.lstm_w = +Counter(lstm_ops.launches)
             losses = np.concatenate([r["step_losses"] for r in rows])
             n_tr = sl.epochs * sl.train_steps
             n_ev = sl.epochs * sl.val_steps + sl.test_steps * sum(
@@ -4045,6 +4344,22 @@ def main():
                   f"{label}: kernel launches {v} {dict(w)} != {expect} at "
                   f"D={sl.D} (per train step L fused forward + L gather "
                   f"backward, per eval step L fused forward)")
+            # the BiLSTM kernel: each of the model's BiLSTMs (an attention
+            # combine a K-hop layer, JK attention) once a forward, once a
+            # backward, whatever the backend
+            n_bi = sum(isinstance(m, BiLSTM)
+                       for m in make_model(sl.cfg).modules())
+            ldt = getattr(torch, sl.cfg.compute_dtype)
+            lexp = ({lstm_ops.variant_name("fwd", ldt): (n_tr + n_ev) * n_bi,
+                     lstm_ops.variant_name("bwd", ldt): n_tr * n_bi}
+                    if n_bi else {})
+            lv = Counter()
+            for (vname, _, _), n in sl.lstm_w.items():
+                lv[vname] += n
+            log(f"[{label}] BiLSTM kernel launches {dict(lv)} (expected "
+                f"{lexp}), by (variant, T, H) {dict(sl.lstm_w)}")
+            check(dict(lv) == lexp, f"{label}: BiLSTM kernel launches "
+                  f"{dict(lv)} != {lexp} ({n_bi} BiLSTMs a forward)")
             refs = {"CPU": first_step_loss(sl, first_batch(
                 sl.loaders[getattr(sl, "cpu_mode", "pallas")]), "cpu")}
             sl.sorted_sums = {}
@@ -4085,13 +4400,15 @@ def main():
             torch=torch, spmm=spmm, dev=dev, work=work, args=args,
             splits=splits, zinc_train=zinc_train, tl=tl, mcfg=mcfg,
             zloss=float(zlosses[0]), fused_v=fused_v, gather_v=gather_v,
-            ctl=ctl)
+            ctl=ctl, lk=lk)
         api_w = api_phase(ctx)
         mark("api")
         det_runs = determinism_phase(ctx)
         mark("determinism")
         op_gap_phase(ctx)
         mark("op_gap")
+        prefetch_phase(ctx)
+        mark("prefetch")
         # ---- 3b. --bf16 on the main path: the kernel's bf16 variants ----
         fused_b = spmm.variant_name(torch.bfloat16, True, True)
         gather_b = spmm.variant_name(torch.bfloat16, True, False)
@@ -4124,8 +4441,8 @@ def main():
         check(zinc_bf16.dtypes == {torch.float32},
               f"bf16: parameters or norm statistics in {zinc_bf16.dtypes}")
         # the bf16 train step on one fixed batch; its profile names the
-        # LSTM kernels the bf16 combine runs on (cuDNN's RNN or PyTorch's
-        # fused cell)
+        # LSTM kernels the bf16 combine runs on (the port's bf16 BiLSTM
+        # kernel, no cuDNN RNN kernel)
         bmodel = init_parameters(make_model(bmcfg), SEED).to(dev)
         bopt = make_optimizer(bmodel.parameters(), 1e-3)
         bbatch = fb.to(dev)
@@ -4134,14 +4451,17 @@ def main():
             return train_step(bmodel, bopt, bbatch)
         # the activations run in bf16, not only the loss bounds' outputs:
         # every linear map and LSTM of the K-hop layers returns bf16 on
-        # the card, and the step's profile shows cuDNN's bf16 LSTM and a
-        # bf16 GEMM (a model that computed in f32 and cast its output
-        # would meet the loss bounds above)
+        # the card, the step launches the BiLSTM kernel's bf16 variants
+        # (once a BiLSTM forward and backward) and its profile shows them
+        # and a bf16
+        # GEMM (a model that computed in f32 and cast its output would
+        # meet the loss bounds above)
         out_dtypes = {}
         hooks = [m.register_forward_hook(
             lambda mod, args, out, n=n: out_dtypes.__setitem__(n, out.dtype))
             for n, m in bmodel.named_modules()
             if isinstance(m, (TorchLinear, BiLSTM))]
+        lstm_ops.reset_launch_counts()
         try:
             _, v = launched(spmm, bf16_step)
         finally:
@@ -4149,6 +4469,15 @@ def main():
                 h.remove()
         check(v == {fused_b: L, gather_b: L},
               f"the bf16 train step launched {v}")
+        blv = Counter()
+        for (vname, _, _), n in lstm_ops.launches.items():
+            blv[vname] += n
+        n_bi = sum(isinstance(m, BiLSTM) for m in bmodel.modules())
+        bl_expect = {lstm_ops.variant_name("fwd", torch.bfloat16): n_bi,
+                     lstm_ops.variant_name("bwd", torch.bfloat16): n_bi}
+        log(f"[bf16] the step's BiLSTM kernel launches {dict(blv)}")
+        check(dict(blv) == bl_expect, f"bf16: the step's BiLSTM kernel "
+              f"launches {dict(blv)} != {bl_expect}")
         layer_out = {n: d for n, d in out_dtypes.items() if n.startswith(
             ("embedding_model.gnn", "embedding_model.output_proj"))}
         f32_out = sorted(n for n, d in out_dtypes.items()
@@ -4164,13 +4493,14 @@ def main():
         log(f"[time] flagship bf16 train step {bstep_ms:.2f} ms")
         bprof = profile_step(torch, bf16_step, bstep_ms, "flagship bf16")
         if bprof is not None:
-            rnn = [k for k in bprof[4]
-                   if "rnn" in k.lower() or "lstm" in k.lower()]
+            ours, other = rnn_kernels(bprof[4])
             gemm16 = [k[:60] for k in bprof[4]
                       if "gemm" in k.lower() and "bf16" in k.lower()]
             log(f"[bf16] the step's bf16 GEMMs: {gemm16}")
-            check(rnn and all("bfloat16" in k for k in rnn),
-                  f"bf16: the step's LSTM ran {[k[:60] for k in rnn]}")
+            check(ours and not other
+                  and all("__nv_bfloat16" in k for k in ours),
+                  f"bf16: the step's LSTM ran {[k[:60] for k in ours]} "
+                  f"and {[k[:60] for k in other]}")
             check(gemm16, "bf16: the step ran no bf16 GEMM")
 
         mark("bf16")
@@ -4404,17 +4734,15 @@ def main():
                      for n, p in model.named_parameters()}, v)
 
         def gradient_gate(label, name, cfg, loader, hp, loss, expect,
-                          node_level=False, gated=True):
+                          node_level=False):
             """One step of ``cfg``'s model, initialized from SEED, on the
             card against the same step on the CPU, on ``loader.example()``:
             the loss, every parameter gradient against the CPU step that
             takes the card's ReLU branches (the module docstring's gate),
             each ReLU input whose branch differs within 1e-4 of its call's
             largest |input| of 0, and the card's launches per variant
-            against ``expect``.  ``gated=False`` logs the same comparison
-            as a witness and holds only the launches.  Returns the
-            launches per (variant, D); the worst |err| / tol goes to
-            ``gradient_gate.worst``."""
+            against ``expect``.  Returns the launches per (variant, D); the
+            worst |err| / tol goes to ``gradient_gate.worst``."""
             batch = loader.example()
 
             def fresh():
@@ -4455,20 +4783,15 @@ def main():
                 f"{v_g} (expected {expect}), by width {dict(+w)}")
             if over:
                 log(f"[{label}] {name}: {len(over)} gradients outside the "
-                    f"{'gate' if gated else 'bound (a witness, not gated)'}"
-                    ": " + "; ".join(leaf_text(t) for t in over))
+                    "gate: " + "; ".join(leaf_text(t) for t in over))
             check(not v_c and not v_r,
                   f"{name}: a CPU step launched {v_c or v_r}")
             check(v_g == expect, f"{name}: launches {v_g} != {expect}")
             gradient_gate.worst = max(t[1] for t in gated_leaves)
-            if gated:
-                check(not over,
-                      f"{name}: {len(over)} gradients outside the gate")
-                check(flip_rel <= 1e-4, f"{name}: a ReLU input "
-                      f"{flip_rel:.2e} of its call's largest from 0 took "
-                      f"another branch on the card")
-                check(rel <= 1e-4,
-                      f"{name}: loss differs by {rel:.2e} > 1e-4")
+            check(not over, f"{name}: {len(over)} gradients outside the gate")
+            check(flip_rel <= 1e-4, f"{name}: a ReLU input {flip_rel:.2e} of "
+                  f"its call's largest from 0 took another branch on the card")
+            check(rel <= 1e-4, f"{name}: loss differs by {rel:.2e} > 1e-4")
             return +w
 
         fam_w = Counter()
@@ -4516,6 +4839,7 @@ def main():
         check(rel <= 1e-4, f"dense: first-step loss differs by {rel:.2e} "
               f"from the pallas run's > 1e-4")
         pd = QM9_H // PRIME_K
+        lstm_ops.reset_launch_counts()
         prime_w = gradient_gate(
             "qm9", f"KPGINPrime K={PRIME_K} L={PRIME_L}", pmcfg, ptl,
             (pargs.lr, pargs.l2_wd), "mse",
@@ -4526,6 +4850,9 @@ def main():
         check(dict(prime_w) == expect_pw,
               f"KPGINPrime launches by width {dict(prime_w)} != {expect_pw} "
               f"(one K-hop layer at D={pd}, then GINE at D={QM9_H})")
+        prime_lstm_w = +Counter(lstm_ops.launches)
+        log(f"[qm9] KPGINPrime K={PRIME_K} gated step: BiLSTM kernel "
+            f"launches by (variant, T, H) {dict(prime_lstm_w)}")
 
         mark("dense and KPGINPrime")
         # ---- 8. the generated-data scripts at their canonical widths ----
@@ -4679,9 +5006,13 @@ def main():
         log(f"[time] flagship train step {step_ms:.2f} ms, "
             f"{union_edges / step_ms / 1e3:.3f}M union edges/s "
             f"({union_edges} union edges, batch {BATCH})")
-        step_profiles["pallas per-batch"] = profile_step(
+        step_profiles["pallas per-batch"] = fprof = profile_step(
             torch, lambda: train_step(model, opt, batch), step_ms,
             "flagship")
+        if fprof is not None:
+            ours, other = rnn_kernels(fprof[4])
+            check(ours and not other, f"the flagship step's LSTM kernels: "
+                  f"{ours} and {other}")
 
         mark("time flagship")
         # ---- the same times at the CSL shapes ----
@@ -4785,6 +5116,9 @@ def main():
             if prof is not None:
                 check(prof[3] < 1.0, f"{label}: indexing_backward_kernel "
                       f"{prof[3]:.3f} ms per step")
+                ours, other = rnn_kernels(prof[4])
+                check(ours and not other, f"the {label} step's LSTM "
+                      f"kernels: {ours} and {other}")
         mark("time qm9")
         # ---- the same times at the generated-data shapes ----
         gen_t = {label: shape_times(sl.plan, sl.D, f"{label} k={sl.cfg.K}",
@@ -4957,6 +5291,28 @@ def main():
     # [determinism] legs' shapes, each with the launches of one run of
     # its leg
     entries += sorted_entries
+    # the BiLSTM kernel at each [lstm] shape (the longest sequence), with
+    # its launches at that (T, H) in the run that takes the shape: the
+    # flagship's [train] and [bf16] runs and the QM9 run (every layer's
+    # combine: T = H = min(l + 1, K) from 2 to K), the KPGINPrime gated
+    # step, and [lstm]'s JK-attention train step (JK's own T = L + 1 and
+    # H = L; its combines are the flagship's)
+    jk = "flagship JK attention"
+    lstm_runs = {("flagship combine", "f32"): zinc.lstm_w,
+                 ("flagship combine", "bf16"): zinc_bf16.lstm_w,
+                 ("qm9 combine", "f32"): qm9.lstm_w,
+                 (f"qm9 KPGINPrime K={PRIME_K} combine", "f32"): prime_lstm_w,
+                 (jk, "f32"): lstm_steps[jk]}
+    for (label, dname, _), e in lstm_entries.items():
+        run_w = lstm_runs.get((label, dname))
+        if run_w is None:       # the bf16 checks and times stay in the log
+            continue
+        e = dict(e)
+        shape_th = e.pop("T"), e.pop("H")
+        n = sum(c for (v, t, h), c in run_w.items() if v == e["variant"]
+                and (t, h) == shape_th)
+        check(n > 0, f"{e['name']}: its run launched it {n} times")
+        entries.append(dict(e, launches=n))
     log("[phases] seconds: " + ", ".join(
         f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks, marks[1:]))
         + f"; total {marks[-1][1] - marks[0][1]:.1f}")

@@ -133,6 +133,69 @@ def eval_step(model, batch: GraphBatch, loss: str = "l1",
     return out
 
 
+PREFETCH_DEPTH = 2          # batches device_prefetch copies ahead
+EVAL_CACHE_BYTES = 1 << 30  # DeviceCacheLoader's cap (the JAX package's)
+
+
+def device_prefetch(iterable, device):
+    """The batches of ``iterable`` on ``device``, copied by a helper thread
+    (``loader.background_iter``) at most PREFETCH_DEPTH batches ahead of
+    the consumer (kpgnn_tpu/train/loop.py:150): ``b.to(device)`` off the
+    dispatch thread.  Cancellation-safe: abandoning the generator stops
+    the thread."""
+    from .loader import background_iter
+
+    return background_iter(lambda: (b.to(device) for b in iterable),
+                           maxsize=PREFETCH_DEPTH)
+
+
+def _nbytes(obj) -> int:
+    """Bytes of the tensors of a batch (or a part of one), through
+    dataclass fields, tuples and lists."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, (tuple, list)):
+        return sum(map(_nbytes, obj))
+    if dataclasses.is_dataclass(obj):
+        return sum(_nbytes(getattr(obj, f.name))
+                   for f in dataclasses.fields(obj))
+    return 0
+
+
+class DeviceCacheLoader:
+    """An eval loader whose (deterministic) batches stay on the device
+    (kpgnn_tpu/train/loop.py:166): the first pass prefetches them
+    (``device_prefetch``) and records them up to EVAL_CACHE_BYTES; later
+    passes replay the record.  Past the cap it keeps nothing and streams
+    every pass."""
+
+    def __init__(self, loader, device):
+        self.loader = loader
+        self.device = device
+        self._cache = None
+
+    def __iter__(self):
+        if self._cache is not None:
+            return iter(self._cache)
+        return self._fill()
+
+    def _fill(self):
+        cache, used, overflow = [], 0, False
+        for b in device_prefetch(iter(self.loader), self.device):
+            if not overflow:
+                used += _nbytes(b)
+                if used <= EVAL_CACHE_BYTES:
+                    cache.append(b)
+                else:
+                    cache, overflow = None, True
+            yield b
+        if not overflow:
+            self._cache = cache
+
+    def __len__(self):
+        return len(self.loader)
+
+
 def train_epoch(model, opt, batches, loss: str = "l1",
                 generator: Optional[torch.Generator] = None,
                 node_level: bool = False,
@@ -337,7 +400,10 @@ class Trainer:
             train_step_fn = make_parallel_train_step(mesh)
             eval_step_fn = make_parallel_eval_step(mesh)
         generator = torch.Generator(device=device).manual_seed(gen_seed)
-        cached: Dict[int, list] = {}
+        # eval batches stay on the device: one DeviceCacheLoader a loader
+        # on one device (capped, kpgnn_tpu/train/loop.py:477), every
+        # shard of a parallel rank
+        cached: Dict[int, object] = {}
 
         def on_device(loader):
             return (b.to(device) for b in loader)
@@ -426,9 +492,10 @@ class Trainer:
                 return resident_eval(store, chunks(
                     np.arange(len(loader.graphs)), loader.batch_size,
                     store.num_graphs))
-            if id(loader) not in cached:        # eval batches stay resident
-                cached[id(loader)] = list(on_device(
-                    loader if wrap is None else wrap(loader)))
+            if id(loader) not in cached:
+                cached[id(loader)] = (
+                    DeviceCacheLoader(loader, device) if wrap is None
+                    else list(on_device(wrap(loader))))
             return evaluate(model, cached[id(loader)], self.loss,
                             self.eval_metric, self.node_level,
                             self.bn_train_mode_eval, step=eval_step_fn)
