@@ -28,19 +28,20 @@ Phases, each of which fails the run loudly:
      multi-window and graph-sorted cases, gather and fused, f32 and bf16,
      forward and backward, against the plain version and bit for bit on
      a repeat; ``segment_sum``'s sums, the same in every run and the
-     CPU's where they are exact; and the BiLSTM kernel against its plain
-     version at every (T, H) its source lists): exit 0 with more than 0
-     passed.  Then [lstm] (``lstm_phase``): the BiLSTM recurrence kernel
+     CPU's where they are exact; and the BiLSTM kernels against their
+     plain version at T 1-17, every hidden-size capacity and B 0-4,095):
+     exit 0 with more than 0 passed.  Then [lstm] (``lstm_phase``): the BiLSTM recurrence kernels
      (csrc/bilstm.cu, built in phase 1 beside the gather) at the main
      path's shapes (the flagship's, QM9's and KPGINPrime K=16's attention
-     combine and the flagship with JK attention), f32 and bf16, forward
-     and backward against the plain version and float64, a repeat bit
-     for bit, an unsupported hidden size raising, and its times beside
-     its byte bound (the bytes the function needs; the saved activations
-     apart, with the eval forward's time that saves none), the plain
-     version's and cuDNN's (``torch._VF.lstm``, the one call of cuDNN's
-     LSTM left, held against the kernel plus the matmuls it leaves to
-     ``torch.matmul``);
+     combine and the flagship with JK attention) and two more (T = 20,
+     past the 16 steps the kernels stage whole; B one past a multiple of
+     the tile), f32 and bf16, forward and backward against the plain
+     version and float64, f32 y bit for bit, db_ih = db_hh, a repeat bit
+     for bit, an unsupported hidden size raising, the kernels one
+     flagship BiLSTM call launches, and the times beside the byte bound
+     (the bytes the function needs), the plain version's and cuDNN's
+     (``torch._VF.lstm``, the one call of cuDNN's LSTM left, held against
+     the kernels plus the matmuls they leave to ``torch.matmul``);
   3. train  — write a ZINC-format fixture (tools/make_zinc_fixture.py) and
      run ``kpgnn_tpu_torch.scripts.train_zinc.main`` at the flagship's
      full width (KPGINPlus K=8 L=8 H=104, attention combine, JK concat,
@@ -3100,6 +3101,12 @@ LSTM_ITERS = 100       # [lstm]: timed calls a variant and shape
 LSTM = dict(route="cuda", source="kpgnn_tpu_torch/csrc/bilstm.cu",
             # no TPU kernel: the JAX package's lax.scan, and cuDNN here
             replaces="kpgnn_tpu/ops/lstm.py:100")
+# [lstm]'s cases past the main path's shapes, on a fresh BiLSTM of the
+# flagship's width: T past the kernels' 16 staged steps (their rings),
+# and B one past a multiple of the tile (a last block of one sequence);
+# (label, T, B, F, H)
+LSTM_EXTRA = (("ring T=20", 20, 4096, 104, 8),
+              ("ragged B=4,097", 8, 4097, 104, 8))
 
 
 def lstm_bound_ms(T, B, H, nbytes, kind):
@@ -3107,23 +3114,22 @@ def lstm_bound_ms(T, B, H, nbytes, kind):
     bounds it): the bytes the function needs to move (each input read
     once, each output written once), given that the forward keeps y and c
     for the backward, over HBM_BYTES_PER_S against its f32 operations over
-    F32_FLOPS.  Forward ("fwd"): reads xg (T, B, 8H), W_hh and b_hh,
-    writes y and c (T, B, 2H each); 8H^2 + 21H operations a sequence,
-    direction and step (the gate products, sums, nonlinearities and the
-    cell).  Backward ("bwd"): reads dy, y and c (T, B, 2H each), xg (to
-    recompute the gates) and W_hh, writes dxg (T, B, 8H) and dW_hh and
-    db_hh in f32; 16H^2 + 24H operations (dh, dW_hh, the gate
-    gradients).  On either side the kernel's own choices are not counted:
-    the forward's saved activations (``lstm_saved_bytes``, which the
-    backward reads in place of xg, the same bytes) and the backward's
-    per-block partials."""
+    F32_FLOPS.  Forward ("fwd"): reads xm (T, B, 8H), W_hh, b_ih and
+    b_hh, writes y and c (T, B, 2H each); 8H^2 + 25H operations a
+    sequence, direction and step (the b_ih add, the gate products, sums,
+    nonlinearities and the cell).  Backward ("bwd"): reads dy, y and c
+    (T, B, 2H each), xm (to recompute the gates), W_hh, b_ih and b_hh,
+    writes dxm (T, B, 8H) and dW_hh, db_hh and db_ih in f32; 16H^2 + 24H
+    operations (dh, dW_hh, the gate gradients; the recomputed gates are
+    the design's)."""
     tb = T * B
+    weights = 8 * H * H + 16 * H           # W_hh, b_ih and b_hh
     if kind == "fwd":
-        moved = (tb * 8 * H + 2 * tb * 2 * H + 8 * H * (H + 1)) * nbytes
-        ops = 2 * tb * (8 * H * H + 21 * H)
+        moved = (tb * 8 * H + 2 * tb * 2 * H + weights) * nbytes
+        ops = 2 * tb * (8 * H * H + 25 * H)
     else:
-        moved = ((3 * tb * 2 * H + 2 * tb * 8 * H + 8 * H * H) * nbytes
-                 + 2 * (4 * H * H + 4 * H) * 4)
+        moved = ((3 * tb * 2 * H + 2 * tb * 8 * H + weights) * nbytes
+                 + weights * 4)
         ops = 2 * tb * (16 * H * H + 24 * H)
     by_bytes = moved / HBM_BYTES_PER_S * 1e3
     by_ops = ops / F32_FLOPS * 1e3
@@ -3131,39 +3137,163 @@ def lstm_bound_ms(T, B, H, nbytes, kind):
                                                             "operations")
 
 
-def lstm_saved_bytes(T, B, H, nbytes):
-    """Bytes of the activations (i, f, g, o a step, (T, B, 8H)) that the
-    kernel's forward saves for its backward beyond y and c."""
-    return T * B * 8 * H * nbytes
+def bilstm_call_launches(torch, mod, x, time_major):
+    """{kernel name: launches} of one call of the BiLSTM ``mod`` on ``x``,
+    its forward and its backward (torch.profiler), or None where the
+    profiler records no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x = x.detach().requires_grad_()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        mod(x, time_major=time_major).sum().backward()
+        torch.cuda.synchronize()
+    mod.zero_grad(set_to_none=True)
+    counts = {e.key: e.count for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA}
+    return counts or None
+
+
+def lstm_case(torch, mod, seq, dt, gen, ulp):
+    """[lstm]'s checks and times of one BiLSTM call: ``mod``'s recurrence
+    on the bare input product of ``seq`` (T, B, F) in dtype ``dt``, with a
+    random dy.  Returns ({"fwd" | "bwd": kernels-line entry fields}, the
+    log text)."""
+    from kpgnn_tpu_torch.ops import lstm
+
+    def run(fn, xm, w_hh, b_ih, b_hh, dy):
+        leaves = [t.detach().clone().requires_grad_() for t in
+                  (xm, w_hh, b_ih, b_hh)]
+        y = fn(*leaves)
+        y.backward(dy.to(y.dtype))
+        return [y.detach()] + [t.grad for t in leaves]
+
+    dname = "f32" if dt == torch.float32 else "bf16"
+    w_ih, w_hh, b_ih, b_hh = (t.detach() for t in mod.weights(dt))
+    sx = seq.to(dt)
+    with torch.no_grad():
+        xm = lstm.input_projection(sx, w_ih).contiguous()
+    T, B, _ = xm.shape
+    H = w_hh.shape[2]
+    dy = torch.randn(T, B, 2 * H, device=xm.device, generator=gen).to(dt)
+    args = (xm, w_hh, b_ih, b_hh, dy)
+    exact = run(lstm.recurrence_reference, *(t.double() for t in args))
+    plain = run(lstm.recurrence_reference, *args)
+    got = run(lstm.recurrence, *args)
+    again = run(lstm.recurrence, *args)
+    torch.cuda.synchronize()
+    notes, worst = [], {"fwd": 0.0, "bwd": 0.0}
+    names = ("y", "dxm", "dW_hh", "db_ih", "db_hh")
+    for name, g, p, e, a in zip(names, got, plain, exact, again):
+        check(torch.equal(g, a), f"lstm {dname} T={T} B={B} H={H} {name}: "
+              f"a second run differs")
+        if name == "db_ih":     # the kernels' one bias gradient: = db_hh
+            continue
+        err = float((g.double() - e).abs().max())
+        own = float((p.double() - e).abs().max())
+        diff = float((g.double() - p.double()).abs().max())
+        tol = 2 * own + ulp[dt] * float(e.abs().max())
+        kind = "fwd" if name == "y" else "bwd"
+        worst[kind] = max(worst[kind], diff)
+        notes.append(f"{name} kernel {err:.2e}, plain {own:.2e} from "
+                     f"float64 (tol {tol:.2e}), kernel - plain {diff:.2e}")
+        check(err <= tol, f"lstm {dname} T={T} B={B} H={H} {name}: the "
+              f"kernel errs {err:.3e} from float64, the plain version "
+              f"{own:.3e} (tol {tol:.3e})")
+    if dt == torch.float32:
+        check(torch.equal(got[0], plain[0]), f"lstm f32 T={T} B={B} H={H}: "
+              f"y differs from the plain version's")
+    check(torch.equal(got[3], got[4].reshape(-1)), f"lstm {dname} T={T} "
+          f"B={B} H={H}: db_ih != db_hh")
+    # db is the fold of dxm: its sums over the sequences a step, folded
+    # over the steps as autograd folds the plain version's, within an ulp
+    # at the scale of the fold's terms
+    want = lstm.bias_gradient(got[1]).double()
+    tol = torch.finfo(dt).eps * lstm.step_sums(got[1]).abs().sum(0)
+    diff = (got[4].double() - want).abs()
+    err = float(diff.max())
+    check(bool((diff <= tol).all()), f"lstm {dname} T={T} B={B} H={H}: db "
+          f"is {err:.3e} from the fold of dxm")
+    notes.append(f"db - fold of dxm {err:.2e}")
+    with torch.no_grad():
+        y, c = lstm.launch_forward(xm, w_hh, b_ih, b_hh)
+        # the products outside the kernels (forward: the bare input
+        # product; backward: dx and dW_ih), xm standing in for dxm (the
+        # same shape and dtype)
+        proj_ms = {
+            "fwd": time_ms(torch, lambda _: lstm.input_projection(sx, w_ih),
+                           [None], iters=LSTM_ITERS),
+            "bwd": time_ms(torch, lambda _: (
+                xm @ w_ih, xm.flatten(0, 1).T @ sx.flatten(0, 1)), [None],
+                iters=LSTM_ITERS)}
+        ms = {"fwd": time_ms(torch, lambda _: lstm.launch_forward(
+            xm, w_hh, b_ih, b_hh), [None], iters=LSTM_ITERS),
+            "bwd": time_ms(torch, lambda _: lstm.launch_backward(
+                dy, y, c, xm, w_hh, b_ih, b_hh), [None], iters=LSTM_ITERS)}
+        plain_ms = {
+            "fwd": time_ms(torch, lambda _: lstm.recurrence_reference(
+                xm, w_hh, b_ih, b_hh), [None], iters=LSTM_ITERS),
+            "bwd": time_ms(torch, lambda _: lstm.bilstm_backward_reference(
+                xm, w_hh, b_ih, b_hh, dy), [None], iters=LSTM_ITERS)}
+    flat = [p.detach().to(dt).requires_grad_()
+            for p in mod.lstm._flat_weights]
+    sq = sx.detach().requires_grad_()
+    h0 = sq.new_zeros(2, B, H)
+
+    def cudnn(_=None):
+        return torch._VF.lstm(sq, (h0, h0), flat, True, 1, 0.0, True, True,
+                              False)[0]
+    yc = cudnn()
+    lib_ms = {"fwd": time_ms(torch, cudnn, [None], iters=LSTM_ITERS),
+              "bwd": time_ms(torch, lambda _: torch.autograd.grad(
+                  yc, [sq] + flat, dy, retain_graph=True), [None],
+                  iters=LSTM_ITERS)}
+    fields, times = {}, []
+    for kind in ("fwd", "bwd"):
+        bound, by = lstm_bound_ms(T, B, H, xm.element_size(), kind)
+        fields[kind] = dict(max_abs_err=worst[kind], ms=ms[kind],
+                            plain_ms=plain_ms[kind], bound_ms=bound,
+                            bound_by=by, library_ms=lib_ms[kind],
+                            projection_ms=proj_ms[kind], T=T, H=H)
+        times.append(f"{kind} {ms[kind]:.4f} ms (bound {bound:.4f} by {by}, "
+                     f"{bound / ms[kind]:.0%} of it; plain "
+                     f"{plain_ms[kind]:.4f}, cuDNN {lib_ms[kind]:.4f} "
+                     f"against kernel + matmuls "
+                     f"{ms[kind] + proj_ms[kind]:.4f})")
+    text = (f"T={T} B={B} F={seq.shape[2]} H={H}; " + "; ".join(notes)
+            + "; a repeat bit for bit; times: " + ", ".join(times))
+    return fields, text
 
 
 def lstm_phase(ctx):
-    """[lstm]: the BiLSTM kernel (csrc/bilstm.cu) against its plain version
-    on the card, at the main path's shapes: for each of ``ctx.lstm_cases``
-    ({label: (model config, batch)}) one train step of the model
-    (initialized from SEED) on the card, its BiLSTMs' inputs recorded, and
-    the call with the longest sequence taken: its recurrence input xg
-    (``input_projection`` of the recorded input with the module's
-    weights) and a random dy, in f32 and in bf16.  The kernel's y, dxg,
-    dW_hh and db_hh (``recurrence`` under autograd) against the plain
-    version in the same dtype and in float64 on the same values: the
-    kernel's largest error from float64 at most twice the plain
-    version's own plus one ulp of the dtype at the output's scale (the
-    two sum the gate products in other orders; the kernel rounds where
-    the plain cell's ops round, and its bf16 backward computes in f32);
-    a second run equal bit for bit.  Times on CUDA events (LSTM_ITERS
-    calls): the forward launch (saving the backward's inputs, and an eval
-    forward that saves nothing) and the backward launch (with the sum of
-    its partials), beside their byte bound, the plain version's
-    (``recurrence_reference``, ``bilstm_backward_reference``) and cuDNN's
-    (``torch._VF.lstm`` on the same sequence and weights: its forward in
-    train mode, and its backward through autograd).  cuDNN's calls also
-    do the products the kernel leaves to ``torch.matmul`` (forward: the
-    input projection; backward: dx, dW_ih and db_ih), timed apart as
-    ``projection_ms``.  Then a hidden size of 17 must raise.  Returns
-    ({(label, dtype name, "fwd" | "bwd"): kernels-line entry without its
-    launches}, {label: BiLSTM kernel launches by (variant, T, H) of the
-    train step})."""
+    """[lstm]: the BiLSTM kernels (csrc/bilstm.cu) against their plain
+    version on the card, at the main path's shapes: for each of
+    ``ctx.lstm_cases`` ({label: (model config, batch)}) one train step of
+    the model (initialized from SEED) on the card, its BiLSTMs' inputs
+    recorded, and the call with the longest sequence taken; then the
+    LSTM_EXTRA shapes on a fresh BiLSTM.  Each in f32 and bf16
+    (``lstm_case``): the kernels' y, dxm, dW_hh, db_ih and db_hh
+    (``recurrence`` under autograd, on the bare input product with a
+    random dy) against the plain version in the same dtype and in float64
+    on the same values: the kernels' largest error from float64 at most
+    twice the plain version's own plus one ulp of the dtype at the
+    output's scale (they sum the gate products in other orders than
+    cuBLAS; the kernels round where the plain cell's ops round, and the
+    bf16 backward computes in f32); f32 y the plain version's bit for
+    bit; db_ih equal to db_hh; a second run equal bit for bit.  Times on
+    CUDA events (LSTM_ITERS calls): the forward launch (training and eval
+    alike) and the backward launch, beside their byte bound, the plain
+    version's (``recurrence_reference``, ``bilstm_backward_reference``)
+    and cuDNN's (``torch._VF.lstm`` on the same sequence and weights: its
+    forward in train mode, and its backward through autograd).  cuDNN's
+    calls also do the products the kernels leave to ``torch.matmul``
+    (forward: the input product; backward: dx and dW_ih), timed apart as
+    ``projection_ms``.  The flagship combine's call is also profiled: the
+    kernels one BiLSTM forward and backward launches.  Then a hidden size
+    of 17 must raise.  Returns ({(label, dtype name, "fwd" | "bwd"):
+    kernels-line entry without its launches}, {label: BiLSTM kernel
+    launches by (variant, T, H) of the train step}, {kernel name:
+    launches of one flagship BiLSTM call} or None)."""
     torch, dev = ctx.torch, ctx.dev
     from kpgnn_tpu_torch.models.factory import make_model
     from kpgnn_tpu_torch.nn.inits import init_parameters
@@ -3171,16 +3301,10 @@ def lstm_phase(ctx):
     from kpgnn_tpu_torch.train.loop import train_step
     from kpgnn_tpu_torch.train.state import make_optimizer
 
-    def run(fn, xg, w_hh, b_hh, dy):
-        leaves = [t.detach().clone().requires_grad_() for t in
-                  (xg, w_hh, b_hh)]
-        y = fn(*leaves)
-        y.backward(dy.to(y.dtype))
-        return [y.detach()] + [t.grad for t in leaves]
-
     gen = torch.Generator(device=dev).manual_seed(SEED)
     ulp = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -8}
-    entries, step_launches = {}, {}
+    entries, step_launches, call_launches = {}, {}, None
+    cases = []
     for label, (cfg, batch) in ctx.lstm_cases.items():
         model = init_parameters(make_model(cfg), SEED).to(dev)
         calls = []
@@ -3209,113 +3333,45 @@ def lstm_phase(ctx):
             f"lstm {label}: the train step launched {dict(per_variant)} "
             f"for {len(calls)} BiLSTM calls")
         mod, x, tm = max(calls, key=lambda c: c[1].shape[0 if c[2] else 1])
-        seq = x if tm else x.transpose(0, 1)
+        if label == "flagship combine":
+            call_launches = bilstm_call_launches(torch, mod, x, tm)
+            log(f"[lstm] {label}: one BiLSTM call, forward and backward, "
+                f"launches " + (f"{sum(call_launches.values())} kernels: "
+                                + ", ".join(f"{k[:50]} x{n}" for k, n in
+                                            sorted(call_launches.items()))
+                                if call_launches else "not measured (the "
+                                "profiler recorded no kernel)"))
+        cases.append((label, mod, x if tm else x.transpose(0, 1),
+                      "time" if tm else "batch"))
+    for label, T, B, F, H in LSTM_EXTRA:
+        mod = lstm.BiLSTM(F, H)
+        mod.init_params(torch.Generator().manual_seed(SEED))
+        x = torch.randn(T, B, F, device=dev, generator=gen)
+        cases.append((label, mod.to(dev), x, "time"))
+    for label, mod, seq, major in cases:
         for dt in (torch.float32, torch.bfloat16):
             dname = "f32" if dt == torch.float32 else "bf16"
-            w_ih, w_hh, b_ih, b_hh = (t.detach() for t in mod.weights(dt))
-            with torch.no_grad():
-                xg = lstm.input_projection(seq.to(dt), w_ih, b_ih
-                                           ).contiguous()
-            T, B, _ = xg.shape
-            H = w_hh.shape[2]
-            dy = torch.randn(T, B, 2 * H, device=dev, generator=gen).to(dt)
-            exact = run(lstm.recurrence_reference,
-                        *(t.double() for t in (xg, w_hh, b_hh, dy)))
-            plain = run(lstm.recurrence_reference, xg, w_hh, b_hh, dy)
-            got = run(lstm.recurrence, xg, w_hh, b_hh, dy)
-            again = run(lstm.recurrence, xg, w_hh, b_hh, dy)
-            torch.cuda.synchronize()
-            notes, worst = [], {"fwd": 0.0, "bwd": 0.0}
-            for name, g, p, e, a in zip(("y", "dxg", "dW_hh", "db_hh"), got,
-                                        plain, exact, again):
-                err = float((g.double() - e).abs().max())
-                own = float((p.double() - e).abs().max())
-                diff = float((g.double() - p.double()).abs().max())
-                tol = 2 * own + ulp[dt] * float(e.abs().max())
-                kind = "fwd" if name == "y" else "bwd"
-                worst[kind] = max(worst[kind], diff)
-                notes.append(f"{name} kernel {err:.2e}, plain {own:.2e} "
-                             f"from float64 (tol {tol:.2e}), kernel - plain "
-                             f"{diff:.2e}")
-                check(err <= tol, f"lstm {label} {dname} {name}: the "
-                      f"kernel errs {err:.3e} from float64, the plain "
-                      f"version {own:.3e} (tol {tol:.3e})")
-                check(torch.equal(g, a), f"lstm {label} {dname} {name}: a "
-                      f"second run differs")
-            sx = seq.to(dt)
-            with torch.no_grad():
-                y, act, cst = lstm.launch_forward(xg, w_hh, b_hh, save=True)
-                eval_ms = time_ms(torch, lambda _: lstm.launch_forward(
-                    xg, w_hh, b_hh, save=False), [None], iters=LSTM_ITERS)
-                # the products outside the kernel; act stands in for dxg
-                # (the same shape and dtype) in the backward's
-                proj_ms = {
-                    "fwd": time_ms(torch, lambda _: lstm.input_projection(
-                        sx, w_ih, b_ih), [None], iters=LSTM_ITERS),
-                    "bwd": time_ms(torch, lambda _: (
-                        act @ w_ih, act.flatten(0, 1).T @ sx.flatten(0, 1),
-                        act.sum((0, 1))), [None], iters=LSTM_ITERS)}
-                ms = {"fwd": time_ms(torch, lambda _: lstm.launch_forward(
-                    xg, w_hh, b_hh, save=True), [None], iters=LSTM_ITERS),
-                    "bwd": time_ms(torch, lambda _: lstm.launch_backward(
-                        dy, y, act, cst, w_hh), [None], iters=LSTM_ITERS)}
-                plain_ms = {
-                    "fwd": time_ms(torch, lambda _: lstm.recurrence_reference(
-                        xg, w_hh, b_hh), [None], iters=LSTM_ITERS),
-                    "bwd": time_ms(torch, lambda _:
-                                   lstm.bilstm_backward_reference(
-                                       xg, w_hh, b_hh, dy), [None],
-                                   iters=LSTM_ITERS)}
-            flat = [p.detach().to(dt).requires_grad_()
-                    for p in mod.lstm._flat_weights]
-            sq = seq.to(dt).detach().requires_grad_()
-            h0 = sq.new_zeros(2, B, H)
-
-            def cudnn(_=None):
-                return torch._VF.lstm(sq, (h0, h0), flat, True, 1, 0.0,
-                                      True, True, False)[0]
-            yc = cudnn()
-            lib_ms = {"fwd": time_ms(torch, cudnn, [None], iters=LSTM_ITERS),
-                      "bwd": time_ms(torch, lambda _: torch.autograd.grad(
-                          yc, [sq] + flat, dy, retain_graph=True), [None],
-                          iters=LSTM_ITERS)}
-            times = []
+            fields, text = lstm_case(torch, mod, seq, dt, gen, ulp)
             for kind in ("fwd", "bwd"):
-                bound, by = lstm_bound_ms(T, B, H, xg.element_size(), kind)
                 vname = lstm.variant_name(kind, dt)
+                f = fields[kind]
                 entries[label, dname, kind] = dict(
-                    name=f"{vname} T={T} H={H} {label}", variant=vname,
-                    **LSTM, shape=f"{label}: T={T}, B={B}, F={seq.shape[2]}, "
-                    f"H={H}", max_abs_err=worst[kind], ms=ms[kind],
-                    plain_ms=plain_ms[kind], bound_ms=bound, bound_by=by,
-                    library_ms=lib_ms[kind], projection_ms=proj_ms[kind],
-                    T=T, H=H)
-                extra = ""
-                if kind == "fwd":
-                    saved = lstm_saved_bytes(T, B, H, xg.element_size())
-                    extra = (f"; eval forward, nothing saved, {eval_ms:.4f} "
-                             f"ms; the saved activations {saved / 1e6:.2f} "
-                             f"MB, {saved / HBM_BYTES_PER_S * 1e3:.4f} ms "
-                             f"at the memory rate")
-                times.append(f"{kind} {ms[kind]:.4f} ms (bound "
-                             f"{bound:.4f} by {by}{extra}, plain "
-                             f"{plain_ms[kind]:.4f}, cuDNN "
-                             f"{lib_ms[kind]:.4f} against kernel + "
-                             f"matmuls {ms[kind] + proj_ms[kind]:.4f})")
-            log(f"[lstm] {label} {dname}: T={T} B={B} F={seq.shape[2]} "
-                f"H={H} ({'time' if tm else 'batch'}-major); "
-                + "; ".join(notes) + "; a repeat bit for bit; times: "
-                + ", ".join(times))
-    xg17 = torch.zeros(2, 3, 8 * 17, device=dev)
+                    name=f"{vname} T={f['T']} H={f['H']} {label}",
+                    variant=vname, **LSTM,
+                    shape=f"{label}: T={f['T']}, B={seq.shape[1]}, "
+                    f"F={seq.shape[2]}, H={f['H']}", **f)
+            log(f"[lstm] {label} {dname} ({major}-major): {text}")
+    xm17 = torch.zeros(2, 3, 8 * 17, device=dev)
     try:
-        lstm.recurrence(xg17, torch.zeros(2, 68, 17, device=dev),
+        lstm.recurrence(xm17, torch.zeros(2, 68, 17, device=dev),
+                        torch.zeros(136, device=dev),
                         torch.zeros(2, 68, device=dev))
         raised = None
     except ValueError as e:
         raised = str(e)
     check(raised is not None, "lstm: a hidden size of 17 did not raise")
     log(f"[lstm] hidden size 17 raises: {raised}")
-    return entries, step_launches
+    return entries, step_launches, call_launches
 
 
 OP_GAP_FACTOR = 10     # [op_gap]: a card gap this many times the CPU's own
@@ -4254,7 +4310,7 @@ def main():
               f"kernel tests: exit {rc}, {passed} passed:\n{out}")
         mark("kernel tests")
         # ---- 2c. the BiLSTM kernel at the main path's shapes ----
-        lstm_entries, lstm_steps = lstm_phase(SimpleNamespace(
+        lstm_entries, lstm_steps, lstm_call = lstm_phase(SimpleNamespace(
             torch=torch, dev=dev, lstm_cases={
                 "flagship combine": (mcfg, fb),
                 "qm9 combine": (qmcfg, qfb),
@@ -5013,6 +5069,21 @@ def main():
             ours, other = rnn_kernels(fprof[4])
             check(ours and not other, f"the flagship step's LSTM kernels: "
                   f"{ours} and {other}")
+            # the BiLSTM's launches a step: its kernels (from the step's
+            # profile) and every launch of its calls (one call's, from
+            # [lstm], times the step's calls)
+            n_calls = sum(n for k, n in fprof[5].items()
+                          if "bilstm_fwd" in k)
+            per_call = sum(lstm_call.values()) if lstm_call else None
+            log(f"[profile] flagship train step: BiLSTM kernels a step "
+                + ", ".join(f"{k[:50]} x{n:g}" for k, n in
+                            sorted(fprof[5].items()) if "bilstm_" in k)
+                + f"; {n_calls:g} BiLSTM calls x "
+                + (f"{per_call} launches a call (forward and backward, "
+                   f"[lstm]) = {n_calls * per_call:g} BiLSTM-related "
+                   f"launches" if per_call else "launches a call not "
+                   "measured")
+                + f" of the step's {fprof[1]:.0f}")
 
         mark("time flagship")
         # ---- the same times at the CSL shapes ----

@@ -1,38 +1,46 @@
 """Bidirectional LSTM over a short axis (counterpart of
-kpgnn_tpu/ops/lstm.py), on a hand-written recurrence kernel on the card.
+kpgnn_tpu/ops/lstm.py), on hand-written recurrence kernels on the card.
 
-The JAX module's structure, kept here: both directions' input
-projections in ONE matmul (``input_projection``: ``xg = x @ W_ih_cat.T +
-b_ih_cat``, (T, B, 8H)), then a recurrence that steps both directions at
-once, ``gates = xg_t + h @ W_hh.T + b_hh`` in the gate order input,
-forget, cell, output; the backward direction reads xg at T-1-t, with no
-reversed copy of x.  Parameters initialize U(-1/sqrt(H), 1/sqrt(H)) from
-an explicit generator and live in a ``torch.nn.LSTM`` used only as their
-holder: its names (``lstm.weight_ih_l0``, ``..._reverse``) are the ones
-``utils/convert``, checkpoints and the golden bundles know.
+The JAX module's structure, kept here: both directions' input products
+in ONE matmul (``input_projection``: ``xm = x @ W_ih_cat.T``, (T, B,
+8H)), then a recurrence that steps both directions at once, ``gates =
+(xm_t + b_ih) + h @ W_hh.T + b_hh`` in the gate order input, forget,
+cell, output; the backward direction reads xm at T-1-t, with no reversed
+copy of x.  The recurrence adds b_ih (the JAX module's ``tm @ w_ih.T +
+b_ih``, rounded alike), so ``recurrence(xm, w_hh, b_ih, b_hh)`` and its
+plain version ``recurrence_reference`` take the same arguments and no
+pass over xm adds the bias.  Parameters initialize U(-1/sqrt(H),
+1/sqrt(H)) from an explicit generator and live in a ``torch.nn.LSTM``
+used only as their holder: its names (``lstm.weight_ih_l0``,
+``..._reverse``) are the ones ``utils/convert``, checkpoints and the
+golden bundles know.
 
 The recurrence: on a CPU tensor, the plain version
-(``recurrence_reference``, under autograd); on a CUDA tensor, the kernel
-of ``csrc/bilstm.cu`` (``recurrence``), forward and backward through
-``_BiLSTMFn``, or a raise: nothing falls back to cuDNN or to the plain
-version on the card.  The kernel replaces no TPU kernel: it replaces the
-JAX package's unrolled ``lax.scan`` (kpgnn_tpu/ops/lstm.py:100), which
-XLA fuses, and cuDNN's LSTM, which launches per time step and whose
-error on the card was 1.3-2.6x the CPU's (PERF.md).  What bounds it on
-the card, its design, the shapes it takes and where it rounds are in
-the source's note.
+(``recurrence_reference``, under autograd); on a CUDA tensor, the kernels
+of ``csrc/bilstm.cu`` (``recurrence``): ``launch_forward`` (y and the
+cell states c, nothing else saved, for training and eval alike) and,
+through ``_BiLSTMFn``, ``launch_backward`` (dxm, dW_hh and the one bias
+gradient, which serves b_ih and b_hh, all summed inside the kernel), or
+a raise: nothing falls back to cuDNN or to the plain version on the
+card.  ``bilstm_backward_reference`` writes the backward kernel's
+algorithm out in torch ops.  The kernels replace no TPU kernel: they
+replace the JAX package's unrolled ``lax.scan``
+(kpgnn_tpu/ops/lstm.py:100), which XLA fuses, and cuDNN's LSTM, which
+launches per time step and whose error on the card was 1.3-2.6x the
+CPU's (PERF.md).  What bounds them on the card, their design, the
+shapes they take and where they round are in the source's note.
 
 Precision: the parameters stay f32.  The recurrence runs in the input's
 dtype (bf16 under ``--bf16``), as the JAX module does: the weights and
 the zero initial state are cast to it, and every op of the plain cell
-rounds to it; the kernel's bf16 variant rounds at the same points.
+rounds to it; the kernels' bf16 variants round at the same points.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
@@ -62,18 +70,19 @@ def variant_name(kind: str, dtype: torch.dtype) -> str:
     return f"bilstm_{kind}[{_suffix(dtype)}]"
 
 
-def input_projection(x: torch.Tensor, w_ih: torch.Tensor,
-                     b_ih: torch.Tensor) -> torch.Tensor:
-    """(T, B, F) -> (T, B, 8H): both directions' input gates in one
-    matmul (forward direction's 4H columns first)."""
-    return x @ w_ih.T + b_ih
+def input_projection(x: torch.Tensor, w_ih: torch.Tensor) -> torch.Tensor:
+    """(T, B, F) -> (T, B, 8H): both directions' input products in one
+    matmul (forward direction's 4H columns first), without b_ih, which
+    the recurrence adds."""
+    return x @ w_ih.T
 
 
-def _run_reference(xg: torch.Tensor, w_hh: torch.Tensor,
+def _run_reference(xm: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
                    b_hh: torch.Tensor):
-    """The plain cell over xg, both directions a step: per processing step
-    s the (2, B, 4H) activations (i, f, g, o), the (2, B, H) cell and
-    hidden states."""
+    """The plain cell over xm + b_ih, both directions a step: per
+    processing step s the (2, B, 4H) activations (i, f, g, o), the (2, B,
+    H) cell and hidden states."""
+    xg = xm + b_ih
     T, B, _ = xg.shape
     H = w_hh.shape[2]
     G = 4 * H
@@ -100,12 +109,13 @@ def _time_order(per_step) -> torch.Tensor:
     return torch.cat([steps[:, 0], steps.flip(0)[:, 1]], -1)
 
 
-def recurrence_reference(xg: torch.Tensor, w_hh: torch.Tensor,
-                         b_hh: torch.Tensor) -> torch.Tensor:
-    """The plain version of the kernel's forward: xg (T, B, 8H), w_hh (2,
-    4H, H), b_hh (2, 4H) -> y (T, B, 2H), the forward direction's h
-    first, in xg's dtype; differentiable."""
-    return _time_order(_run_reference(xg, w_hh, b_hh)[2])
+def recurrence_reference(xm: torch.Tensor, w_hh: torch.Tensor,
+                         b_ih: torch.Tensor, b_hh: torch.Tensor
+                         ) -> torch.Tensor:
+    """The plain version of the kernels: xm (T, B, 8H), w_hh (2, 4H, H),
+    b_ih (8H,), b_hh (2, 4H) -> y (T, B, 2H), the forward direction's h
+    first, in xm's dtype; differentiable."""
+    return _time_order(_run_reference(xm, w_hh, b_ih, b_hh)[2])
 
 
 def bilstm_reference(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
@@ -113,23 +123,29 @@ def bilstm_reference(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
     """The BiLSTM in plain torch ops, the JAX module's structure: x (T, B,
     F), w_ih (8H, F) and b_ih (8H,) both directions' input weights (the
     forward's first), w_hh (2, 4H, H), b_hh (2, 4H) -> (T, B, 2H)."""
-    return recurrence_reference(input_projection(x, w_ih, b_ih), w_hh, b_hh)
+    return recurrence_reference(input_projection(x, w_ih), w_hh, b_ih, b_hh)
 
 
-def bilstm_backward_reference(xg: torch.Tensor, w_hh: torch.Tensor,
-                              b_hh: torch.Tensor, dy: torch.Tensor
+def bilstm_backward_reference(xm: torch.Tensor, w_hh: torch.Tensor,
+                              b_ih: torch.Tensor, b_hh: torch.Tensor,
+                              dy: torch.Tensor
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """Backpropagation through time of ``recurrence_reference`` written out
-    in torch ops, the algorithm of the kernel's backward: the forward
-    again, keeping each step's activations and cell state, then the steps
-    in reverse processing order.  Returns (dxg (T, B, 8H), dw_hh (2, 4H,
-    H), db_hh (2, 4H)) for the output gradient dy (T, B, 2H)."""
+    in torch ops, the algorithm of the backward kernel: the forward again
+    (the kernel recomputes each step's activations from xm, y and c),
+    then the steps in reverse processing order, each op the one autograd
+    runs for the plain cell (ATen's sigmoid_backward and tanh_backward),
+    so the values round as autograd's do.  Returns (dxm (T, B, 8H),
+    dw_hh (2, 4H, H), db (2, 4H)) for the output gradient dy (T, B, 2H);
+    db is the gradient of b_hh and, laid out as (8H,), of b_ih."""
     H = w_hh.shape[2]
+    sigmoid_bw = torch.ops.aten.sigmoid_backward
+    tanh_bw = torch.ops.aten.tanh_backward
     with torch.no_grad():
-        acts, cs, hs = _run_reference(xg, w_hh, b_hh)
+        acts, cs, hs = _run_reference(xm, w_hh, b_ih, b_hh)
         dys = torch.stack([dy[:, :, :H], dy.flip(0)[:, :, H:]], 1)
-        zero = xg.new_zeros(hs[0].shape)
+        zero = xm.new_zeros(hs[0].shape)
         dh = dc = zero
         dw, db = torch.zeros_like(w_hh), torch.zeros_like(b_hh)
         dzs = [None] * len(hs)
@@ -138,11 +154,11 @@ def bilstm_backward_reference(xg: torch.Tensor, w_hh: torch.Tensor,
             c_prev, h_prev = (cs[s - 1], hs[s - 1]) if s else (zero, zero)
             dh_s = dys[s] + dh
             tc = torch.tanh(cs[s])
-            dc_s = dc + dh_s * o * (1 - tc * tc)
-            dz = torch.cat([dc_s * g * i * (1 - i),
-                            dc_s * c_prev * f * (1 - f),
-                            dc_s * i * (1 - g * g),
-                            dh_s * tc * o * (1 - o)], -1)   # (2, B, 4H)
+            dc_s = tanh_bw(dh_s * o, tc) + dc
+            dz = torch.cat([sigmoid_bw(dc_s * g, i),
+                            sigmoid_bw(dc_s * c_prev, f),
+                            tanh_bw(dc_s * i, g),
+                            sigmoid_bw(dh_s * tc, o)], -1)   # (2, B, 4H)
             dc = dc_s * f
             dh = torch.bmm(dz, w_hh)
             dw += torch.bmm(dz.transpose(1, 2), h_prev)
@@ -151,35 +167,61 @@ def bilstm_backward_reference(xg: torch.Tensor, w_hh: torch.Tensor,
     return _time_order(dzs), dw, db
 
 
-def _check(xg: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> int:
-    """The hidden size H of a valid (xg, w_hh, b_hh); raises on what the
-    kernel does not take."""
-    if xg.dim() != 3 or w_hh.dim() != 3 or w_hh.shape[0] != 2:
-        raise ValueError(f"xg must be (T, B, 8H) and w_hh (2, 4H, H), got "
-                         f"{tuple(xg.shape)} and {tuple(w_hh.shape)}")
+def step_sums(dxm: torch.Tensor) -> torch.Tensor:
+    """dxm (T, B, 8H) summed over the sequences at each processing step s
+    (direction 0's rows at time s, direction 1's at T-1-s), in float64:
+    (T, 2, 4H)."""
+    G = dxm.shape[2] // 2
+    x = dxm.double()
+    return torch.stack([x[:, :, :G].sum(1), x.flip(0)[:, :, G:].sum(1)], 1)
+
+
+def bias_gradient(dxm: torch.Tensor) -> torch.Tensor:
+    """The bias gradient (2, 4H) as the backward kernel forms it from dxm
+    (T, B, 8H): the ``step_sums`` rounded to dxm's dtype (through f32),
+    folded in that dtype from the last step to the first.  That is how
+    autograd sums the plain cell's b_hh gradient: one sum over B a step,
+    added up in the order the backward reaches the steps."""
+    per = step_sums(dxm)
+    T = per.shape[0]
+    db = per[T - 1].float().to(dxm.dtype)
+    for s in range(T - 2, -1, -1):
+        db = db + per[s].float().to(dxm.dtype)
+    return db
+
+
+def _check(xm: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
+           b_hh: torch.Tensor) -> int:
+    """The hidden size H of a valid (xm, w_hh, b_ih, b_hh); raises on what
+    the kernels do not take."""
+    if xm.dim() != 3 or w_hh.dim() != 3 or w_hh.shape[0] != 2:
+        raise ValueError(f"xm must be (T, B, 8H) and w_hh (2, 4H, H), got "
+                         f"{tuple(xm.shape)} and {tuple(w_hh.shape)}")
     H = w_hh.shape[2]
-    if (w_hh.shape[1] != 4 * H or xg.shape[2] != 8 * H
+    if (w_hh.shape[1] != 4 * H or xm.shape[2] != 8 * H
+            or tuple(b_ih.shape) != (8 * H,)
             or tuple(b_hh.shape) != (2, 4 * H)):
-        raise ValueError(f"shapes xg {tuple(xg.shape)}, w_hh "
-                         f"{tuple(w_hh.shape)}, b_hh {tuple(b_hh.shape)} do "
-                         f"not fit one hidden size")
+        raise ValueError(f"shapes xm {tuple(xm.shape)}, w_hh "
+                         f"{tuple(w_hh.shape)}, b_ih {tuple(b_ih.shape)}, "
+                         f"b_hh {tuple(b_hh.shape)} do not fit one hidden "
+                         f"size")
     if not 1 <= H <= MAX_HIDDEN:
         raise ValueError(f"the BiLSTM kernel takes hidden sizes 1 to "
                          f"{MAX_HIDDEN}, got {H}")
-    if xg.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"xg must be float32 or bfloat16, got {xg.dtype}")
-    for name, t in (("w_hh", w_hh), ("b_hh", b_hh)):
-        if t.dtype != xg.dtype or t.device != xg.device:
-            raise ValueError(f"{name} is {t.dtype} on {t.device}, xg "
-                             f"{xg.dtype} on {xg.device}")
-    if xg.numel() >= 2 ** 31:
-        raise ValueError("the kernel indexes xg with 32-bit ints")
+    if xm.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"xm must be float32 or bfloat16, got {xm.dtype}")
+    for name, t in (("w_hh", w_hh), ("b_ih", b_ih), ("b_hh", b_hh)):
+        if t.dtype != xm.dtype or t.device != xm.device:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}, xm "
+                             f"{xm.dtype} on {xm.device}")
+    if xm.numel() >= 2 ** 31:
+        raise ValueError("the kernel indexes xm with 32-bit ints")
     return H
 
 
 def _fn(name: str, n_ptr: int):
     fn = getattr(cuda_lib.load(KERNEL_SOURCE), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -195,88 +237,157 @@ def _raise_on(err: int, kind: str) -> None:
                            f"{err}")
 
 
-def launch_forward(xg: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
-                   save: bool):
-    """One launch of the forward kernel on contiguous CUDA tensors: (y
-    (T, B, 2H), and with ``save`` the activations (T, B, 8H) and cell
-    states (T, B, 2H) the backward reads, else None, None), all in xg's
-    dtype.  Counts the launch."""
-    H = _check(xg, w_hh, b_hh)
-    if xg.device.type != "cuda":
-        raise ValueError(f"no kernel for device {xg.device}")
-    T, B, _ = xg.shape
-    y = xg.new_empty(T, B, 2 * H)
-    act = xg.new_empty(xg.shape) if save else None
-    cst = xg.new_empty(y.shape) if save else None
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = _fn(f"kpgnn_bilstm_fwd_{_suffix(xg.dtype)}", 6)(
-        xg.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), y.data_ptr(),
-        ptr(act), ptr(cst), T, B, H, _stream(xg))
+def _rows_apart(B: int, H: int, dtype: torch.dtype) -> int:
+    """Rows between two time steps of a (T, B, 2H) tensor the kernels
+    take: B, or B rounded up to 8 where a step's bytes are not a multiple
+    of 16 (the kernels' TMA maps need 16-byte strides)."""
+    size = torch.empty(0, dtype=dtype).element_size()
+    return B if B * 2 * H * size % 16 == 0 else -(-B // 8) * 8
+
+
+def _narrow_strides(B: int, H: int, dtype: torch.dtype):
+    """The strides of a (T, B, 2H) tensor as the kernels take it."""
+    return (_rows_apart(B, H, dtype) * 2 * H, 2 * H, 1)
+
+
+def _narrow_empty(T: int, B: int, H: int, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """An uninitialized (T, B, 2H) tensor laid out as the kernels take it
+    (``_rows_apart`` rows a step; not a view)."""
+    storage = torch.empty(T * _rows_apart(B, H, dtype) * 2 * H, dtype=dtype,
+                          device=device).untyped_storage()
+    return torch.empty(0, dtype=dtype, device=device).set_(
+        storage, 0, (T, B, 2 * H), _narrow_strides(B, H, dtype))
+
+
+def _conform(t: torch.Tensor, dtype: torch.dtype, strides) -> torch.Tensor:
+    """t in ``dtype`` with ``strides`` at a 16-byte aligned address, as
+    the kernels' TMA maps read it; a copy where it is not."""
+    t = t.to(dtype)
+    if t.stride() == tuple(strides) and t.data_ptr() % 16 == 0:
+        return t
+    out = torch.empty_strided(t.shape, strides, dtype=dtype, device=t.device)
+    out.copy_(t)
+    return out
+
+
+def _scratch(T: int, B: int, H: int, dtype: torch.dtype) -> int:
+    """Doubles of the backward's scratch (one partial a block of its
+    grid), from the library."""
+    fn = getattr(cuda_lib.load(KERNEL_SOURCE),
+                 f"kpgnn_bilstm_scratch_{_suffix(dtype)}")
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    n = fn(T, B, H)
+    if n < 0:
+        raise RuntimeError(f"bilstm backward: no grid for T={T}, B={B}, "
+                           f"H={H}")
+    return n
+
+
+# the backward's grid-barrier counters by (device, stream): zero at a
+# launch, and each launch leaves them zero, so launches in one stream
+# share them
+_tickets: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _ticket_counters(device: torch.device, stream: int) -> torch.Tensor:
+    buf = _tickets.get((device, stream))
+    if buf is None:
+        buf = _tickets[device, stream] = torch.zeros(2, dtype=torch.int32,
+                                                     device=device)
+    return buf
+
+
+def launch_forward(xm: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
+                   b_hh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the forward kernel on CUDA tensors: (y, c), each (T,
+    B, 2H) in xm's dtype, c the cell states the backward reads; their
+    time steps lie ``_rows_apart`` rows apart.  Counts the launch."""
+    H = _check(xm, w_hh, b_ih, b_hh)
+    if xm.device.type != "cuda":
+        raise ValueError(f"no kernel for device {xm.device}")
+    T, B, _ = xm.shape
+    xm = _conform(xm, xm.dtype, (B * 8 * H, 8 * H, 1))
+    w_hh, b_ih, b_hh = (t.contiguous() for t in (w_hh, b_ih, b_hh))
+    y, c = (_narrow_empty(T, B, H, xm.dtype, xm.device) for _ in range(2))
+    err = _fn(f"kpgnn_bilstm_fwd_{_suffix(xm.dtype)}", 6)(
+        xm.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(), b_hh.data_ptr(),
+        y.data_ptr(), c.data_ptr(), T, B, H, _rows_apart(B, H, xm.dtype),
+        _stream(xm))
     _raise_on(err, "forward")
-    launches[variant_name("fwd", xg.dtype), T, H] += 1
-    return y, act, cst
+    launches[variant_name("fwd", xm.dtype), T, H] += 1
+    return y, c
 
 
-def launch_backward(dy: torch.Tensor, y: torch.Tensor, act: torch.Tensor,
-                    cst: torch.Tensor, w_hh: torch.Tensor):
-    """One launch of the backward kernel: (dxg (T, B, 8H) in the forward's
-    dtype, dw_hh (2, 4H, H) and db_hh (2, 4H) in w_hh's dtype).  The
-    kernel writes one f32 partial of dw_hh and db_hh a block (the
-    library's ``kpgnn_bilstm_partials`` of them), with no atomics; their
-    sum over blocks is one ``torch.sum`` in a fixed order, so the
-    gradients repeat bit for bit.  Counts the launch."""
-    T, B, H2 = y.shape
-    H = H2 // 2
-    dy = dy.to(y.dtype).contiguous()
-    if y.device.type != "cuda":
-        raise ValueError(f"no kernel for device {y.device}")
-    dxg = torch.empty_like(act)
+def launch_backward(dy: torch.Tensor, y: torch.Tensor, c: torch.Tensor,
+                    xm: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
+                    b_hh: torch.Tensor):
+    """One launch of the backward kernel: (dxm (T, B, 8H) in the forward's
+    dtype, dw_hh (2, 4H, H), db_hh (2, 4H) and db_ih (8H,) in w_hh's
+    dtype).  The kernel recomputes the gates from xm, y and c, and sums
+    dw_hh and the bias gradient itself, in a fixed order and with no
+    atomics, so the gradients repeat bit for bit; db_ih is a copy of that
+    one sum, laid out as b_ih.  Counts the launch."""
+    H = _check(xm, w_hh, b_ih, b_hh)
+    if xm.device.type != "cuda":
+        raise ValueError(f"no kernel for device {xm.device}")
+    T, B, _ = xm.shape
+    xm = _conform(xm, xm.dtype, (B * 8 * H, 8 * H, 1))
+    dy, y, c = (_conform(t, xm.dtype, _narrow_strides(B, H, xm.dtype))
+                for t in (dy, y, c))
+    w_hh, b_ih, b_hh = (t.contiguous() for t in (w_hh, b_ih, b_hh))
     G = 4 * H
-    lib = cuda_lib.load(KERNEL_SOURCE)
-    lib.kpgnn_bilstm_partials.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.kpgnn_bilstm_partials.restype = ctypes.c_int
-    part = torch.empty(lib.kpgnn_bilstm_partials(B, H), 2, G * H + G,
-                       dtype=torch.float32, device=y.device)
-    err = _fn(f"kpgnn_bilstm_bwd_{_suffix(y.dtype)}", 7)(
-        dy.data_ptr(), y.data_ptr(), act.data_ptr(), cst.data_ptr(),
-        w_hh.data_ptr(), dxg.data_ptr(), part.data_ptr(), T, B, H,
-        _stream(y))
+    f32 = dict(dtype=torch.float32, device=xm.device)
+    dxm = torch.empty_like(xm)
+    make = torch.zeros if B == 0 else torch.empty
+    dw, db = make(2, G, H, **f32), make(2, G, **f32)
+    stream = _stream(xm)
+    scratch = torch.empty(_scratch(T, B, H, xm.dtype), dtype=torch.float64,
+                          device=xm.device)
+    err = _fn(f"kpgnn_bilstm_bwd_{_suffix(xm.dtype)}", 12)(
+        dy.data_ptr(), y.data_ptr(), c.data_ptr(), xm.data_ptr(),
+        w_hh.data_ptr(), b_ih.data_ptr(), b_hh.data_ptr(), dxm.data_ptr(),
+        dw.data_ptr(), db.data_ptr(), scratch.data_ptr(),
+        _ticket_counters(xm.device, stream).data_ptr(), T, B, H,
+        _rows_apart(B, H, xm.dtype), stream)
     _raise_on(err, "backward")
-    launches[variant_name("bwd", y.dtype), T, H] += 1
-    total = part.sum(0)
-    dw = total[:, :G * H].reshape(2, G, H).to(w_hh.dtype)
-    return dxg, dw, total[:, G * H:].to(w_hh.dtype)
+    launches[variant_name("bwd", xm.dtype), T, H] += 1
+    dt = w_hh.dtype
+    db = db.to(dt)
+    return dxm, dw.to(dt), db, db.reshape(-1).clone()
 
 
 class _BiLSTMFn(torch.autograd.Function):
-    """The recurrence on the kernel, forward and backward (csrc/bilstm.cu):
-    (xg, w_hh, b_hh) -> y."""
+    """The recurrence on the kernels, forward and backward
+    (csrc/bilstm.cu): (xm, w_hh, b_ih, b_hh) -> y."""
 
     @staticmethod
-    def forward(ctx, xg, w_hh, b_hh):
-        y, act, cst = launch_forward(xg, w_hh, b_hh, save=True)
-        ctx.save_for_backward(y, act, cst, w_hh)
+    def forward(ctx, xm, w_hh, b_ih, b_hh):
+        y, c = launch_forward(xm, w_hh, b_ih, b_hh)
+        ctx.save_for_backward(xm, y, c, w_hh, b_ih, b_hh)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        y, act, cst, w_hh = ctx.saved_tensors
-        return launch_backward(dy, y, act, cst, w_hh)
+        xm, y, c, w_hh, b_ih, b_hh = ctx.saved_tensors
+        dxm, dw, db, db_ih = launch_backward(dy, y, c, xm, w_hh, b_ih, b_hh)
+        return dxm, dw, db_ih, db
 
 
-def recurrence(xg: torch.Tensor, w_hh: torch.Tensor,
+def recurrence(xm: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
                b_hh: torch.Tensor) -> torch.Tensor:
-    """xg (T, B, 8H), w_hh (2, 4H, H), b_hh (2, 4H) -> y (T, B, 2H) in xg's
-    dtype.  On a CUDA tensor the kernel (its backward through
-    ``_BiLSTMFn`` where a gradient is wanted, else a forward that saves
-    nothing), or a raise; only a CPU tensor takes the plain version."""
-    if xg.device.type == "cpu":
-        return recurrence_reference(xg, w_hh, b_hh)
-    xg, w_hh, b_hh = (t.contiguous() for t in (xg, w_hh, b_hh))
+    """xm (T, B, 8H), w_hh (2, 4H, H), b_ih (8H,), b_hh (2, 4H) -> y (T,
+    B, 2H) in xm's dtype.  On a CUDA tensor the kernels (the backward
+    through ``_BiLSTMFn`` where a gradient is wanted; the forward is one
+    launch either way), or a raise; only a CPU tensor takes the plain
+    version."""
+    if xm.device.type == "cpu":
+        return recurrence_reference(xm, w_hh, b_ih, b_hh)
     if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (xg, w_hh, b_hh)):
-        return _BiLSTMFn.apply(xg, w_hh, b_hh)
-    return launch_forward(xg, w_hh, b_hh, save=False)[0]
+            t.requires_grad for t in (xm, w_hh, b_ih, b_hh)):
+        return _BiLSTMFn.apply(xm, w_hh, b_ih, b_hh)
+    return launch_forward(xm, w_hh, b_ih, b_hh)[0]
 
 
 class BiLSTM(nn.Module):
@@ -310,7 +421,7 @@ class BiLSTM(nn.Module):
                 time_major: bool = False) -> torch.Tensor:
         seq = x if time_major else x.transpose(0, 1)
         w_ih, w_hh, b_ih, b_hh = self.weights(x.dtype)
-        out = recurrence(input_projection(seq, w_ih, b_ih), w_hh, b_hh)
+        out = recurrence(input_projection(seq, w_ih), w_hh, b_ih, b_hh)
         return out if time_major else out.transpose(0, 1)
 
 

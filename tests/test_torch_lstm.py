@@ -2,7 +2,10 @@
 ``BiLSTM`` (forward, and every gradient through ``jax.vjp``), its
 written-out backward through time (the backward kernel's algorithm)
 against autograd, and the cuDNN-form call the port used before
-(``torch._VF.lstm``, ATen's CPU LSTM here).
+(``torch._VF.lstm``, ATen's CPU LSTM here).  The recurrence adds b_ih
+itself and the backward kernel returns one bias gradient for b_ih and
+b_hh: the JAX package's gradients of the two biases agree within f32
+summation order, which is the algebra that rests on.
 
 Inputs are made with numpy from a seed.  Tolerances: against JAX, f32
 atol 1e-5 / rtol 1e-4 (the two sides sum the gate products in different
@@ -68,13 +71,33 @@ def test_plain_version_against_jax(shape, time_major):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("shape", SHAPES)
+def test_jax_bias_gradients_are_equal(shape):
+    """gates = x W_ih^T + b_ih + h W_hh^T + b_hh: the JAX package's
+    gradients of b_ih_fwd and b_hh_fwd (and of the _bwd pair) are one sum
+    of the gate gradients, equal up to f32 summation order (rtol 1e-5,
+    atol 1e-6 of the gradient's scale)."""
+    jm, v, _, x, dy = jax_and_port(shape, time_major=True)
+    _, vjp = jax.vjp(lambda p: jm.apply(p, jnp.asarray(x)), v)
+    grads = flat(vjp(jnp.asarray(dy))[0]["params"])
+    for d in ("fwd", "bwd"):
+        g_ih, g_hh = grads[f"params/b_ih_{d}"], grads[f"params/b_hh_{d}"]
+        assert g_ih.shape == g_hh.shape == (4 * shape[3],)
+        np.testing.assert_allclose(g_ih, g_hh, rtol=1e-5,
+                                   atol=1e-6 * float(np.abs(g_hh).max()),
+                                   err_msg=d)
+
+
 def recurrence_inputs(shape, dtype, seed=1):
+    """xm (T, B, 8H), w_hh (2, 4H, H), b_ih (8H,), b_hh (2, 4H), dy (T, B,
+    2H)."""
     T, B, _, H = shape
     rng = np.random.default_rng(seed)
     bound = 1.0 / np.sqrt(H)
     return [torch.from_numpy(a).to(dtype) for a in (
         rng.normal(size=(T, B, 8 * H)),
         rng.uniform(-bound, bound, size=(2, 4 * H, H)),
+        rng.uniform(-bound, bound, size=(8 * H,)),
         rng.uniform(-bound, bound, size=(2, 4 * H)),
         rng.normal(size=(T, B, 2 * H)))]
 
@@ -82,18 +105,46 @@ def recurrence_inputs(shape, dtype, seed=1):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_backward_reference_against_autograd(shape, dtype):
-    xg, w_hh, b_hh, dy = recurrence_inputs(shape, dtype)
-    leaves = [t.clone().requires_grad_() for t in (xg, w_hh, b_hh)]
+    """dxm, dw_hh and db against autograd's grads of xm, w_hh and b_hh,
+    and db laid out as (8H,) against b_ih's."""
+    xm, w_hh, b_ih, b_hh, dy = recurrence_inputs(shape, dtype)
+    leaves = [t.clone().requires_grad_() for t in (xm, w_hh, b_ih, b_hh)]
     lstm.recurrence_reference(*leaves).backward(dy)
-    got = lstm.bilstm_backward_reference(xg, w_hh, b_hh, dy)
-    for name, g, leaf in zip(("dxg", "dw_hh", "db_hh"), got, leaves):
-        want = leaf.grad
+    dxm, dw, db = lstm.bilstm_backward_reference(xm, w_hh, b_ih, b_hh, dy)
+    for name, g, want in (("dxm", dxm, leaves[0].grad),
+                          ("dw_hh", dw, leaves[1].grad),
+                          ("db_hh", db, leaves[3].grad),
+                          ("db_ih", db.reshape(-1), leaves[2].grad)):
         if dtype == torch.float64:
             tol = dict(atol=1e-12, rtol=1e-12)
         else:
             tol = dict(atol=1e-5 * float(want.abs().max()), rtol=1e-4)
         torch.testing.assert_close(g, want, **tol, msg=lambda m: f"{name}: "
                                    f"{m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bias_gradient_folds_as_autograd(shape, dtype):
+    """``bias_gradient`` of autograd's own dxm gives autograd's b_hh
+    gradient, and the backward reference's db is that fold: the order and
+    the rounding the backward kernel reproduces.  The step sums run in
+    float64 here and in torch's order in autograd, so each of the T terms
+    of the fold and each partial sum may differ by an ulp: the bound is
+    2T ulps at the scale of the sum of the terms' magnitudes."""
+    T = shape[0]
+    xm, w_hh, b_ih, b_hh, dy = (t.to(dtype) for t in recurrence_inputs(
+        shape, torch.float64))
+    leaves = [t.clone().requires_grad_() for t in (xm, w_hh, b_ih, b_hh)]
+    lstm.recurrence_reference(*leaves).backward(dy)
+    dxm = leaves[0].grad
+    folded = lstm.bias_gradient(dxm)
+    assert folded.dtype == dtype and folded.shape == b_hh.shape
+    tol = 2 * T * torch.finfo(dtype).eps * lstm.step_sums(dxm).abs().sum(0)
+    db = lstm.bilstm_backward_reference(xm, w_hh, b_ih, b_hh, dy)[2]
+    for name, got in (("autograd", leaves[3].grad), ("reference", db)):
+        over = (got.double() - folded.double()).abs() - tol
+        assert float(over.max()) <= 0, name
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -116,16 +167,50 @@ def test_kernel_wrappers_refuse_what_the_kernel_does_not_take():
     mismatched shapes or dtypes, and a CPU tensor (the kernel's wrappers
     launch or raise; only ``recurrence`` takes the plain version there)."""
     H = lstm.MAX_HIDDEN + 1
-    xg, w_hh, b_hh, _ = recurrence_inputs((2, 3, 0, H), torch.float32)
+    xm, w_hh, b_ih, b_hh, _ = recurrence_inputs((2, 3, 0, H), torch.float32)
     with pytest.raises(ValueError, match="hidden sizes 1 to 16"):
-        lstm.launch_forward(xg, w_hh, b_hh, save=False)
-    xg, w_hh, b_hh, _ = recurrence_inputs((2, 3, 0, 4), torch.float32)
+        lstm.launch_forward(xm, w_hh, b_ih, b_hh)
+    xm, w_hh, b_ih, b_hh, dy = recurrence_inputs((2, 3, 0, 4),
+                                                 torch.float32)
     with pytest.raises(ValueError, match="do not fit"):
-        lstm.launch_forward(xg[..., :-1], w_hh, b_hh, save=False)
+        lstm.launch_forward(xm[..., :-1], w_hh, b_ih, b_hh)
     with pytest.raises(ValueError, match="w_hh is torch.float64"):
-        lstm.launch_forward(xg, w_hh.double(), b_hh, save=False)
+        lstm.launch_forward(xm, w_hh.double(), b_ih, b_hh)
     with pytest.raises(ValueError, match="no kernel for device cpu"):
-        lstm.launch_forward(xg, w_hh, b_hh, save=False)
-    torch.testing.assert_close(lstm.recurrence(xg, w_hh, b_hh),
-                               lstm.recurrence_reference(xg, w_hh, b_hh),
+        lstm.launch_forward(xm, w_hh, b_ih, b_hh)
+    y = lstm.recurrence_reference(xm, w_hh, b_ih, b_hh)
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        lstm.launch_backward(dy, y, y, xm, w_hh, b_ih, b_hh)
+    torch.testing.assert_close(lstm.recurrence(xm, w_hh, b_ih, b_hh), y,
                                rtol=0, atol=0)
+
+
+# (what is wrong, the arguments' change, the error's pattern)
+REFUSALS = [
+    ("b_ih of one direction", lambda a: a.update(b_ih=a["b_ih"][:4]),
+     "do not fit"),
+    ("b_ih as b_hh's shape", lambda a: a.update(b_ih=a["b_ih"].view(2, -1)),
+     "do not fit"),
+    ("b_ih in float64", lambda a: a.update(b_ih=a["b_ih"].double()),
+     "b_ih is torch.float64"),
+    ("b_hh in bfloat16", lambda a: a.update(b_hh=a["b_hh"].bfloat16()),
+     "b_hh is torch.bfloat16"),
+    ("xm in float64", lambda a: a.update(
+        **{k: a[k].double() for k in ("xm", "w_hh", "b_ih", "b_hh")}),
+     "float32 or bfloat16"),
+]
+
+
+@pytest.mark.parametrize("what,change,pattern", REFUSALS,
+                         ids=[r[0] for r in REFUSALS])
+def test_kernel_wrappers_refuse_bad_biases_and_dtypes(what, change, pattern):
+    """Both kernel wrappers refuse a b_ih or b_hh of another shape or dtype
+    (and an input outside f32 and bf16) before anything else."""
+    xm, w_hh, b_ih, b_hh, dy = recurrence_inputs((2, 3, 0, 4),
+                                                 torch.float32)
+    args = dict(xm=xm, w_hh=w_hh, b_ih=b_ih, b_hh=b_hh)
+    change(args)
+    with pytest.raises((ValueError, TypeError), match=pattern):
+        lstm.launch_forward(**args)
+    with pytest.raises((ValueError, TypeError), match=pattern):
+        lstm.launch_backward(dy, dy, dy, **args)
