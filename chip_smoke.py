@@ -30,14 +30,18 @@ Phases, each of which fails the run loudly:
      a repeat; ``segment_sum``'s sums, the same in every run and the
      CPU's where they are exact; and the BiLSTM kernels against their
      plain version at T 1-17, every hidden-size capacity and B 0-4,095):
-     exit 0 with more than 0 passed.  Then [lstm] (``lstm_phase``): the BiLSTM recurrence kernels
-     (csrc/bilstm.cu, built in phase 1 beside the gather) at the main
-     path's shapes (the flagship's, QM9's and KPGINPrime K=16's attention
-     combine and the flagship with JK attention) and two more (T = 20,
+     exit 0 with more than 0 passed.  Then [lstm] (``lstm_phase``): the
+     BiLSTM recurrence kernels (csrc/bilstm.cu, built in phase 1 beside
+     the gather) at the main path's shapes (the flagship's, QM9's and
+     KPGINPrime K=16's attention combine and the flagship with JK
+     attention) and two more (T = 20,
      past the 16 steps the kernels stage whole; B one past a multiple of
      the tile), f32 and bf16, forward and backward against the plain
-     version and float64, f32 y bit for bit, db_ih = db_hh, a repeat bit
-     for bit, an unsupported hidden size raising, the kernels one
+     version and float64, f32 y and dxm bit for bit, db_ih = db_hh, a
+     repeat bit for bit, the order in which cuBLAS sums the plain
+     version's f32 dh (``scripts/lstm_db_spread.dh_orders``: at every H
+     and B > 1 the backward kernel's order, ``ops/lstm.dh_chain``, or the
+     smoke fails), an unsupported hidden size raising, the kernels one
      flagship BiLSTM call launches, and the times beside the byte bound
      (the bytes the function needs), the plain version's and cuDNN's
      (``torch._VF.lstm``, the one call of cuDNN's LSTM left, held against
@@ -188,7 +192,14 @@ Phases, each of which fails the run loudly:
      edge): launches and first step as above, its first evaluation
      (batch-statistics norms) against the same weights evaluated on the
      CPU and on a fresh card model (rtol 1e-4, the same accuracy, running
-     statistics unchanged), one step under the gradient gate;
+     statistics unchanged), one step under the gradient gate, then
+     [op_gap] at that step (``op_gap_phase(ctx, "sr25", ...)``, reports):
+     the first module past OP_GAP_FACTOR run alone from the CPU's input,
+     each device against float64, a batch norm's channel statistics
+     (``module_alone``), every module's output gradient in backward order
+     and the gate's worst leaf, ``peripheral.pew``, its sum split into
+     the gap of its terms and each device's rounding
+     (``follow_gradient``);
      [sim] ``run_simulation`` at its defaults (forward only: L fused
      launches a forward, no gather) against the same run on the CPU (the
      1e-8 collision threshold is below f32 rounding: a pair that collides
@@ -1203,6 +1214,10 @@ def sr25_phase(ctx):
         "sr25", f"KPGIN K={sl.cfg.K} L={sl.L} SR25", sl.cfg,
         sl.loaders["pallas"], (a.lr, a.l2_wd), sl.loss,
         {ctx.fused_v: sl.L, ctx.gather_v: sl.L})
+    # where the gated step's gradients part from the CPU's, down to
+    # peripheral.pew (the gate's worst leaf)
+    op_gap_phase(ctx, "sr25", sl.cfg, sl.loaders["pallas"].example(),
+                 sl.loaders["coo"].example(), sl.loss)
     return w, gate
 
 
@@ -3203,6 +3218,11 @@ def lstm_case(torch, mod, seq, dt, gen, ulp):
     if dt == torch.float32:
         check(torch.equal(got[0], plain[0]), f"lstm f32 T={T} B={B} H={H}: "
               f"y differs from the plain version's")
+        # dh summed in cuBLAS's order (the [lstm] dh-order line)
+        same = float((got[1] == plain[1]).double().mean())
+        notes.append(f"dxm = plain's in a share {same!r}")
+        check(torch.equal(got[1], plain[1]), f"lstm f32 T={T} B={B} H={H}: "
+              f"dxm differs from the plain version's in a share {1 - same}")
     check(torch.equal(got[3], got[4].reshape(-1)), f"lstm {dname} T={T} "
           f"B={B} H={H}: db_ih != db_hh")
     # db is the fold of dxm: its sums over the sequences a step, folded
@@ -3361,6 +3381,26 @@ def lstm_phase(ctx):
                     shape=f"{label}: T={f['T']}, B={seq.shape[1]}, "
                     f"F={seq.shape[2]}, H={f['H']}", **f)
             log(f"[lstm] {label} {dname} ({major}-major): {text}")
+    # the order of the plain version's f32 dh = dz @ W_hh (autograd's
+    # torch.bmm on cuBLAS), which the backward kernel reproduces
+    from kpgnn_tpu_torch.scripts import lstm_db_spread
+    t0 = time.perf_counter()
+    orders = lstm_db_spread.dh_order_summary(lstm_db_spread.dh_orders(
+        dev, batches=DH_BATCH))
+    odd = {k: v for k, v in orders["per_shape"].items()
+           if lstm_db_spread.KERNEL_ORDER not in v}
+    log(f"[lstm] dh order: cuBLAS's f32 dz @ W_hh against "
+        f"{len(lstm_db_spread.DH_ORDERS)} summation orders at H in "
+        f"{lstm_db_spread.DH_HIDDEN} and {len(DH_BATCH)} B "
+        f"from 1 to 4,097: equal at every shape with H, B > 1 to "
+        f"{orders['every_shape_H_B_over_1']}; the shapes where the "
+        f"backward kernel's order (lstm.dh_chain) is not cuBLAS's: {odd}; "
+        f"of them at B > 1: "
+        f"{orders['kernel_order_differs'] or 'none'}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(not orders["kernel_order_differs"],
+          "lstm: cuBLAS's f32 dh is not summed in the backward kernel's "
+          f"order at {orders['kernel_order_differs']}")
     xm17 = torch.zeros(2, 3, 8 * 17, device=dev)
     try:
         lstm.recurrence(xm17, torch.zeros(2, 68, 17, device=dev),
@@ -3374,6 +3414,9 @@ def lstm_phase(ctx):
     return entries, step_launches, call_launches
 
 
+# [lstm]'s dh-order probe: B from 1 to 4,097 (lstm_db_spread.py
+# --dh_order takes twice as many)
+DH_BATCH = (1, 2, 3, 7, 8, 9, 33, 255, 1024, 4095, 4096, 4097)
 OP_GAP_FACTOR = 10     # [op_gap]: a card gap this many times the CPU's own
 F32_ULP = 2.0 ** -23   # floor of a backend gap, one f32 ulp of the scale
 
@@ -3458,7 +3501,7 @@ def combine_step_errors(ctx, model, batch, real):
     return out
 
 
-def op_gap_phase(ctx):
+def op_gap_phase(ctx, label=None, cfg=None, pb=None, cb=None, loss="l1"):
     """[op_gap]: where the card's flagship step first parts from the CPU's.
     One full-width flagship f32 batch (the run's first, the kernel plan)
     and one set of weights (``init_parameters`` from SEED) on the card and
@@ -3479,7 +3522,12 @@ def op_gap_phase(ctx):
     the CPU in f32, against float64: each step from the float64 result
     of the step before it, so its own rounding shows apart from what
     reaches it, and chained; the BiLSTM also as a plain cell.  Reports
-    and does not gate."""
+    and does not gate.
+
+    With ``label``, the same at another model ``cfg`` and its ``loss`` on
+    the kernel-plan batch ``pb`` and its COO twin ``cb`` (SR25's gated
+    step), and then the step's gradient followed back through the model
+    (``follow_gradient``)."""
     torch, dev = ctx.torch, ctx.dev
     import copy
 
@@ -3502,9 +3550,11 @@ def op_gap_phase(ctx):
             return self.m(batch, train=True)
 
     t0 = time.perf_counter()
-    pb = ctx.tl.example()
-    cb = GraphLoader(ctx.tl.graphs, BATCH, mode="coo").example()
-    model = init_parameters(make_model(ctx.mcfg), SEED)
+    tag = "[op_gap]" + (f" {label}" if label else "")
+    if label is None:
+        pb = ctx.tl.example()
+        cb = GraphLoader(ctx.tl.graphs, BATCH, mode="coo").example()
+    model = init_parameters(make_model(cfg or ctx.mcfg), SEED)
 
     def real(batch, a):
         """``a`` with its node and graph axes cut to the real rows."""
@@ -3542,7 +3592,7 @@ def op_gap_phase(ctx):
         for k, v in cpu.items():
             g, b = gap(card.get(k), v), gap(coo.get(k), v)
             floor = max(b or 0.0, F32_ULP)
-            lines.append(f"[op_gap] {mode} {k}: card {e(g)}, cpu backends "
+            lines.append(f"{tag} {mode} {k}: card {e(g)}, cpu backends "
                          f"{e(b)}")
             if first is None and g is not None and g > OP_GAP_FACTOR * floor:
                 first = (k, g, b)
@@ -3556,7 +3606,7 @@ def op_gap_phase(ctx):
         done = []
         hooks = [p.register_post_accumulate_grad_hook(
             lambda p, n=n: done.append(n)) for n, p in m.named_parameters()]
-        lsum, cnt = _masked_loss(m(b, train=True), b.y, b.graph_mask, "l1")
+        lsum, cnt = _masked_loss(m(b, train=True), b.y, b.graph_mask, loss)
         (lsum / cnt).backward()
         for h in hooks:
             h.remove()
@@ -3571,24 +3621,223 @@ def op_gap_phase(ctx):
     for line in lines:
         log(line)
     for mode, first in named.items():
-        log(f"[op_gap] {mode} forward: first module past {OP_GAP_FACTOR}x "
+        log(f"{tag} {mode} forward: first module past {OP_GAP_FACTOR}x "
             "the CPU's backend gap: " + (
                 "none" if first is None else
                 f"{first[0]} (card {e(first[1])}, cpu backends "
                 f"{e(first[2])})"))
     top = sorted(gaps.items(), key=lambda kv: -kv[1][0])[:5]
     for name, errs in steps.items():
-        log(f"[op_gap] {name} steps, error against float64 (card / cpu): "
+        log(f"{tag} {name} steps, error against float64 (card / cpu): "
             + ", ".join(
                 f"{k} {c} / {u}" if isinstance(c, bool) else
                 f"{k} {e(c)} / {e(u)}" for k, (c, u) in errs.items()))
-    log(f"[op_gap] gradients in backward order: first past {OP_GAP_FACTOR}x"
+    log(f"{tag} gradients in backward order: first past {OP_GAP_FACTOR}x"
         " the CPU's backend gap: " + ("none" if gfirst is None else
                                  f"{gfirst[0]} (card {e(gfirst[1])}, cpu "
                                  f"backends {e(gfirst[2])})")
         + "; furthest apart: " + ", ".join(
             f"{n} card {e(g)} / cpu backends {e(b)}" for n, (g, b) in top)
         + f"; {time.perf_counter() - t0:.1f} s")
+    if label is not None:
+        if named["train"] is not None:
+            module_alone(ctx, tag, model, pb, named["train"][0], real, gap,
+                         e)
+        follow_gradient(ctx, tag, model, pb, cb, loss, real, gap, e)
+
+
+def module_alone(ctx, tag, model, batch, key, real, gap, e):
+    """The module ``key`` (``op_gap_phase``'s name of a module's output)
+    alone: its first call's inputs in the CPU's train forward of
+    ``batch``, run through a copy of it on the card and on the CPU, and
+    in float64 on the CPU (the module and its inputs cast).  Its card gap
+    there is the module's own rounding; each device's gap from float64
+    (over the float64 output's largest |value|) says which device's
+    rounding errs, and by how much; the gap of its input (the card's
+    forward against the CPU's), how far it carries the gap that reaches
+    it.  For a batch norm, also, over the real rows' channels c: the
+    largest max|x_c| / std_c and |mean_c| / std_c (how far x_c's f32
+    rounding, at the scale of |x_c|, moves (x_c - mean_c) / std_c) and
+    max|x_c - mean_c| / std_c (the output's largest |value|)."""
+    torch, dev = ctx.torch, ctx.dev
+    import copy
+
+    import numpy as np
+    from kpgnn_tpu_torch.nn.norms import MaskedBatchNorm
+    path = ".".join(key.split("/")[:-1])
+    seen = {}
+
+    def capture(device):
+        m = copy.deepcopy(model).to(device)
+        mod = m.get_submodule(path)
+
+        def pre(module, args, kwargs):
+            seen.setdefault(device, (copy.deepcopy(module), args, kwargs))
+        h = mod.register_forward_pre_hook(pre, with_kwargs=True)
+        with torch.no_grad():
+            m(batch.to(device), train=True)
+        h.remove()
+        return seen[device]
+
+    def move(v, device):
+        return v.to(device) if torch.is_tensor(v) else v
+
+    def run(mod, args, kwargs, device):
+        with torch.no_grad():
+            out = copy.deepcopy(mod).to(device)(
+                *[move(a, device) for a in args],
+                **{k: move(v, device) for k, v in kwargs.items()})
+        return real(batch, out.detach().double().cpu().numpy())
+
+    def run_f64(mod, args, kwargs):
+        """The module in float64 on the CPU; a batch norm's train-mode
+        formula written out (its forward computes in f32)."""
+        def f64(v):
+            return v.detach().double().cpu() if torch.is_tensor(v) else v
+        args, kwargs = [f64(a) for a in args], \
+            {k: f64(v) for k, v in kwargs.items()}
+        if isinstance(mod, MaskedBatchNorm) and not kwargs.get(
+                "use_running_average", True):
+            x = args[0].reshape(-1, args[0].shape[-1])
+            mask = kwargs.get("mask", args[1] if len(args) > 1 else None)
+            m = (torch.ones(x.shape[0], dtype=x.dtype) if mask is None
+                 else mask.double().reshape(-1))[:, None]
+            cnt = m.sum().clamp(min=1.0)
+            mean = (x * m).sum(0) / cnt
+            var = (((x - mean) ** 2) * m).sum(0) / cnt
+            out = ((x - mean) * torch.rsqrt(var + mod.eps)
+                   * mod.weight.detach().double()
+                   + mod.bias.detach().double()).reshape(args[0].shape)
+        else:
+            with torch.no_grad():
+                out = copy.deepcopy(mod).cpu().double()(*args, **kwargs)
+        return real(batch, out.detach().numpy())
+    mod, args, kwargs = capture("cpu")
+    _, card_args, _ = capture(dev)
+    x = args[0].detach().double().cpu().numpy()
+    card, cpu = run(mod, args, kwargs, dev), run(mod, args, kwargs, "cpu")
+    exact = run_f64(mod, args, kwargs)
+    xin = gap(real(batch, card_args[0].detach().double().cpu().numpy()),
+              real(batch, x))
+    scale = ""
+    if "norm" in type(mod).__name__.lower():
+        xr = real(batch, x)
+        std, mean = xr.std(axis=0), xr.mean(axis=0)
+        live = std > 0
+
+        def worst(v):
+            v = v / np.where(live, std, 1.0)
+            c = int(np.argmax(np.where(live, v, -np.inf)))
+            return f"{float(v[c]):.1f} (channel {c})"
+        scale = (f"; over the real rows' channels c the largest max|x_c| / "
+                 f"std_c {worst(np.abs(xr).max(axis=0))}, |mean_c| / std_c "
+                 f"{worst(np.abs(mean))}, max|x_c - mean_c| / std_c "
+                 f"{worst(np.abs(xr - mean).max(axis=0))}")
+    log(f"{tag} {path} ({type(mod).__name__}) alone from the CPU's input: "
+        f"card {e(gap(card, cpu))}; against float64 card {e(gap(card, exact))}"
+        f" cpu {e(gap(cpu, exact))}; its input's card gap in the forward "
+        f"{e(xin)}" + scale)
+
+
+def follow_gradient(ctx, tag, model, pb, cb, loss, real, gap, e):
+    """The step's gradient followed back through the model: the gradient
+    of every module's output (a tensor hook on each call's output), in
+    the order the backward reaches them, on the card, on the CPU and on
+    the CPU's COO backend; each one's card gap and CPU backend gap (as
+    ``op_gap_phase``'s), and the first past OP_GAP_FACTOR x.  Then the
+    peripheral edge gate's gradient, dL/dpew = gate'(pew) * S, S = sum
+    over (node, hop, unit) of g * emb (g the peripheral output's
+    gradient, emb the edge embedding): S from each device's own autograd
+    (pew's gradient over gate'(pew)), the same terms summed in float64,
+    and the cancellation sum |g * emb| / |S|, which scales the terms'
+    relative gap into S's."""
+    torch, dev = ctx.torch, ctx.dev
+    import copy
+
+    from kpgnn_tpu_torch.models.backbones import _PeripheralEmbed
+    from kpgnn_tpu_torch.train.loop import _masked_loss
+
+    def run(batch, device):
+        m = copy.deepcopy(model).to(device)
+        b = batch.to(device)
+        order, grads, calls, hooks, peri = [], {}, Counter(), [], {}
+
+        def watch(name):
+            def hook(mod, args, out):
+                out = out[0] if isinstance(out, (tuple, list)) and out \
+                    else out
+                if not (torch.is_tensor(out) and out.requires_grad):
+                    return
+                calls[name] += 1
+                key = name + (f"#{calls[name]}" if calls[name] > 1 else "")
+
+                def save(g):
+                    grads[key] = g.detach().double().cpu().numpy()
+                    order.append(key)
+                out.register_hook(save)
+                if isinstance(mod, _PeripheralEmbed) and mod.use_edge:
+                    peri["mod"] = mod
+                    peri["emb"] = mod.peripheral_edge_embedding(
+                        b.peripheral_edge_attr, sum_axis=-1).detach()
+                    peri["key"] = key
+            return hook
+        for n, mod in m.named_modules():
+            if n:
+                hooks.append(mod.register_forward_hook(watch(n)))
+        lsum, cnt = _masked_loss(m(b, train=True), b.y, b.graph_mask, loss)
+        (lsum / cnt).backward()
+        for h in hooks:
+            h.remove()
+        out = {"order": order, "grads": grads}
+        if peri:
+            p = peri["mod"]
+            gate = p.gate(p.pew.detach().double())
+            dgate = (gate * (1 - gate) if p.gate is torch.sigmoid
+                     else 1 - gate * gate)
+            g = torch.from_numpy(grads[peri["key"]])
+            terms = g * peri["emb"].double().cpu()
+            out.update(
+                pew=float(p.pew.grad), s_own=float(p.pew.grad.double()
+                                                   / dgate),
+                s_f64=float(terms.sum()), abs_sum=float(terms.abs().sum()),
+                g=real(b, g.numpy()), key=peri["key"])
+        return out
+
+    card, cpu, coo = run(pb, dev), run(pb, "cpu"), run(cb, "cpu")
+    first, rows = None, []
+    for key in cpu["order"]:
+        want = real(pb, cpu["grads"][key])
+        g = gap(real(pb, card["grads"][key]), want) \
+            if key in card["grads"] else None
+        b = gap(real(cb, coo["grads"][key]), want) \
+            if key in coo["grads"] else None
+        rows.append(f"{key} card {e(g)} / cpu backends {e(b)}")
+        if first is None and g is not None and \
+                g > OP_GAP_FACTOR * max(b or 0.0, F32_ULP):
+            first = (key, g, b)
+    log(f"{tag} module output gradients in backward order (card / cpu "
+        "backends): " + "; ".join(rows))
+    log(f"{tag} module output gradients: first past {OP_GAP_FACTOR}x the "
+        "CPU's backend gap: " + ("none" if first is None else
+                                f"{first[0]} (card {e(first[1])}, cpu "
+                                f"backends {e(first[2])})"))
+    if "pew" not in cpu:
+        return
+    rel = lambda a, b: abs(a - b) / abs(b) if b else math.inf
+    log(f"{tag} peripheral.pew: gradient card {card['pew']!r} cpu "
+        f"{cpu['pew']!r} cpu coo {coo['pew']!r} (card gap "
+        f"{e(rel(card['pew'], cpu['pew']))}, cpu backends "
+        f"{e(rel(coo['pew'], cpu['pew']))}); its input g ({cpu['key']}'s "
+        f"gradient) card gap {e(gap(card['g'], cpu['g']))}, cpu backends "
+        f"{e(gap(coo['g'], cpu['g']))}; S = sum g * emb, each device's "
+        f"autograd / its terms in float64: card {card['s_own']!r} / "
+        f"{card['s_f64']!r}, cpu {cpu['s_own']!r} / {cpu['s_f64']!r}, cpu "
+        f"coo {coo['s_own']!r} / {coo['s_f64']!r}; float64 sums card "
+        f"against cpu {e(rel(card['s_f64'], cpu['s_f64']))} (the terms' "
+        f"gap), each device's own rounding of S card "
+        f"{e(rel(card['s_own'], card['s_f64']))} cpu "
+        f"{e(rel(cpu['s_own'], cpu['s_f64']))}; cancellation sum |g * emb|"
+        f" / |S| {cpu['abs_sum'] / abs(cpu['s_f64']):.1f}")
 
 
 def prefetch_phase(ctx):

@@ -126,6 +126,53 @@ def bilstm_reference(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
     return recurrence_reference(input_projection(x, w_ih), w_hh, b_ih, b_hh)
 
 
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+            ) -> torch.Tensor:
+    """fmaf(a, b, c) of f32 tensors, rounded once, computed in float64 on
+    any device: a * b is exact there, the sum's rounding error is kept
+    (TwoSum), and a float64 sum that lies halfway between two f32 values
+    rounds to the side of that error."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    r = s.float()
+    inf = torch.full_like(r, math.inf)
+    other = torch.nextafter(r, torch.where(s > r.double(), inf, -inf))
+    tie = (s != r.double()) & ((r.double() + other.double()) / 2 == s)
+    toward = torch.sign(other.double() - r.double()) == torch.sign(err)
+    return torch.where(tie & (err != 0) & toward, other, r)
+
+
+def dh_chain(H: int) -> int:
+    """The rows of W_hh one fmaf chain of f32 dh = dz @ W_hh sums, at
+    hidden size H: the backward kernel (``dh_sum`` in csrc/bilstm.cu)
+    runs chains of this many rows ascending from row 0, each from 0, and
+    adds them in order: one chain over all 4H rows, two chains of two at
+    H = 1.  Those are the orders of the card's cuBLAS for the plain
+    cell's product at B > 1 (scripts/lstm_db_spread.py --dh_order)."""
+    return 2 if H == 1 else 4 * H
+
+
+def dh_product(dz: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+    """dh = dz @ W_hh, (2, B, 4H) x (2, 4H, H), the gradient a step hands
+    to h_{t-1}, summed as the backward kernel sums it in f32
+    (``dh_chain``).  That is the card's cuBLAS's order, so on a CUDA
+    tensor, and in another dtype, this is ``torch.bmm``; on a CPU f32
+    tensor the chains are written out (``fma_f32``)."""
+    if dz.dtype != torch.float32 or dz.is_cuda:
+        return torch.bmm(dz, w_hh)
+    step = dh_chain(w_hh.shape[2])
+    out = None
+    for lo in range(0, dz.shape[2], step):
+        acc = dz[:, :, lo:lo + 1] * w_hh[:, None, lo]
+        for r in range(lo + 1, lo + step):
+            acc = fma_f32(dz[:, :, r:r + 1], w_hh[:, None, r], acc)
+        out = acc if out is None else out + acc
+    return out
+
+
 def bilstm_backward_reference(xm: torch.Tensor, w_hh: torch.Tensor,
                               b_ih: torch.Tensor, b_hh: torch.Tensor,
                               dy: torch.Tensor
@@ -136,7 +183,8 @@ def bilstm_backward_reference(xm: torch.Tensor, w_hh: torch.Tensor,
     (the kernel recomputes each step's activations from xm, y and c),
     then the steps in reverse processing order, each op the one autograd
     runs for the plain cell (ATen's sigmoid_backward and tanh_backward),
-    so the values round as autograd's do.  Returns (dxm (T, B, 8H),
+    so the values round as autograd's do, and dh summed as the card's
+    cuBLAS sums autograd's product (``dh_product``).  Returns (dxm (T, B, 8H),
     dw_hh (2, 4H, H), db (2, 4H)) for the output gradient dy (T, B, 2H);
     db is the gradient of b_hh and, laid out as (8H,), of b_ih."""
     H = w_hh.shape[2]
@@ -160,7 +208,7 @@ def bilstm_backward_reference(xm: torch.Tensor, w_hh: torch.Tensor,
                             tanh_bw(dc_s * i, g),
                             sigmoid_bw(dh_s * tc, o)], -1)   # (2, B, 4H)
             dc = dc_s * f
-            dh = torch.bmm(dz, w_hh)
+            dh = dh_product(dz, w_hh)
             dw += torch.bmm(dz.transpose(1, 2), h_prev)
             db += dz.sum(1)
             dzs[s] = dz

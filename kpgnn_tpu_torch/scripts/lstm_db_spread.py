@@ -29,6 +29,15 @@ version's is given.  One JSON line per
 
     python -m kpgnn_tpu_torch.scripts.lstm_db_spread --seeds 6 \\
         --out chiprun_out/lstm_db_spread.jsonl
+
+``--dh_order`` instead asks in which order the card's f32 product dh =
+dz @ W_hh (the plain cell's backward of ``h @ W_hh.T``: autograd's
+``torch.bmm(dz, w_hh)``, (2, B, 4H) x (2, 4H, H)) sums its 4H terms: at
+each hidden size the repo reaches and B from 1 to 4,097 it holds that
+product, bit for bit, against each summation order of ``DH_ORDERS``
+(``dh_orders``) and prints which orders it equals at each shape:
+
+    python -m kpgnn_tpu_torch.scripts.lstm_db_spread --dh_order
 """
 from __future__ import annotations
 
@@ -137,18 +146,145 @@ def one(T, B, H, dtype, seed, dev):
     return row
 
 
+def _chain(terms, fma):
+    """One accumulator over ``terms`` ((a, b) pairs in order) from 0."""
+    acc = None
+    for a, b in terms:
+        if acc is None:
+            acc = a * b                    # fmaf(a, b, 0) rounds the same
+        else:
+            acc = lstm.fma_f32(a, b, acc) if fma else acc + a * b
+    return acc
+
+
+def _chunks(terms, n, fma=True):
+    """``n`` consecutive terms an accumulator, the accumulators added in
+    order."""
+    parts = [_chain(terms[i:i + n], fma) for i in range(0, len(terms), n)]
+    out = parts[0]
+    for p_ in parts[1:]:
+        out = out + p_
+    return out
+
+
+def _strided(terms, n, tree=False):
+    """``n`` accumulators, term r into accumulator r % n (an unrolled
+    loop's or a warp's lanes), then added in order or, with ``tree``, by
+    halving (part i plus part i + n/2, ..., a shuffle tree's order)."""
+    parts = [_chain(terms[i::n], True) for i in range(min(n, len(terms)))]
+    if tree:
+        while len(parts) > 1:
+            half = (len(parts) + 1) // 2
+            parts = [parts[i] + parts[i + half] if i + half < len(parts)
+                     else parts[i] for i in range(half)]
+        return parts[0]
+    out = parts[0]
+    for p_ in parts[1:]:
+        out = out + p_
+    return out
+
+
+# the backward kernel's order (``lstm.dh_chain``)
+KERNEL_ORDER = "the backward kernel's"
+# dh[b, j] = sum over r < 4H of dz[b, r] * W[r, j]; each order is a
+# function of the 4H (dz column, W row) pairs in ascending r
+DH_ORDERS = {
+    KERNEL_ORDER: lambda t: _chunks(t, lstm.dh_chain(len(t) // 4)),
+    "fma ascending": lambda t: _chain(t, True),
+    "fma descending": lambda t: _chain(t[::-1], True),
+    "mul, add ascending": lambda t: _chain(t, False),
+    "fma chains of 2": lambda t: _chunks(t, 2),
+    "fma chains of 4": lambda t: _chunks(t, 4),
+    "fma chains of 8": lambda t: _chunks(t, 8),
+    "fma chains of 16": lambda t: _chunks(t, 16),
+    "2 strided fma chains": lambda t: _strided(t, 2),
+    "4 strided fma chains": lambda t: _strided(t, 4),
+    "8 strided fma chains": lambda t: _strided(t, 8),
+    "products, halving tree": lambda t: _strided(t, len(t), tree=True),
+    "2 strided fma chains, halving tree": lambda t: _strided(t, 2, True),
+    "4 strided fma chains, halving tree": lambda t: _strided(t, 4, True),
+    "8 strided fma chains, halving tree": lambda t: _strided(t, 8, True),
+    "16 strided fma chains, halving tree": lambda t: _strided(t, 16, True),
+    "32 strided fma chains, halving tree": lambda t: _strided(t, 32, True),
+}
+# the hidden sizes the repo's combines reach (H = K), and H = 1 (JK
+# attention over one layer); B = 1 no main path reaches
+DH_HIDDEN = (1, 2, 3, 4, 6, 8, 16)
+DH_BATCH = (1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17, 33, 64, 65, 127, 128, 255,
+            256, 1000, 1024, 2048, 4095, 4096, 4097)
+
+
+def dh_orders(dev, hidden=DH_HIDDEN, batches=DH_BATCH, seed=0):
+    """{(H, B): {order: dh's elements that differ from the card's
+    autograd product}} for f32 inputs with exponents spread over 2^-12 ..
+    2^12 (so a change of order shows).  The product is the plain cell's:
+    ``torch.bmm(h, w_hh.transpose(1, 2))`` differentiated by autograd at
+    dz, which is ``torch.bmm(dz, w_hh)`` (checked equal)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def spread(*shape):
+        return (torch.randn(*shape, generator=gen)
+                * torch.exp2(torch.randint(-12, 13, shape, generator=gen)
+                             .float())).to(dev)
+    out = {}
+    for H in hidden:
+        for B in batches:
+            dz, w = spread(2, B, 4 * H), spread(2, 4 * H, H)
+            h = torch.zeros(2, B, H, device=dev, requires_grad=True)
+            got, = torch.autograd.grad(torch.bmm(h, w.transpose(1, 2)), h,
+                                       dz)
+            if not torch.equal(got, torch.bmm(dz, w)):
+                raise AssertionError(f"H={H} B={B}: autograd's dh is not "
+                                     "torch.bmm(dz, w_hh)")
+            terms = [(dz[:, :, r:r + 1], w[:, r:r + 1, :])
+                     for r in range(4 * H)]
+            out[H, B] = {name: int((fn(terms) != got).sum())
+                         for name, fn in DH_ORDERS.items()}
+    return out
+
+
+def dh_order_summary(unequal) -> dict:
+    """The orders that equal the product at every shape, and at every
+    shape with H > 1 and B > 1; the shapes with B > 1 where the kernel's
+    order (``KERNEL_ORDER``) is not cuBLAS's; for each shape the orders
+    it equals (none: the order with the fewest unequal elements, and
+    their count)."""
+    def exact_at(shapes):
+        return [o for o in DH_ORDERS if all(unequal[s][o] == 0
+                                            for s in shapes)]
+    per = {}
+    for (H, B), u in sorted(unequal.items()):
+        exact = [o for o, v in u.items() if v == 0]
+        best = min(u, key=u.get)
+        per[f"H={H} B={B}"] = exact or [f"none (best {best}: {u[best]} "
+                                        f"of {2 * B * H} unequal)"]
+    return {"every_shape": exact_at(list(unequal)),
+            "every_shape_H_B_over_1": exact_at(
+                [s for s in unequal if s[0] > 1 and s[1] > 1]),
+            "kernel_order_differs": [
+                f"H={H} B={B}" for (H, B), u in sorted(unequal.items())
+                if B > 1 and u[KERNEL_ORDER]],
+            "per_shape": per}
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--steps", default="1,2,8,9,16,17")
     p.add_argument("--hidden", default="1,2,3,4,5,6,8,9,16")
     p.add_argument("--seeds", type=int, default=6)
     p.add_argument("--out", default=None)
+    p.add_argument("--dh_order", action="store_true",
+                   help="only the dh summation-order probe")
     p.add_argument("--device", default="cuda",
                    help="torch device; without CUDA the run raises unless "
                         "--device cpu is given (the kernels need a card)")
     args = p.parse_args(argv)
     dev = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.dh_order:
+        summary = dh_order_summary(dh_orders(dev))
+        print(json.dumps(summary, indent=1))
+        return summary
     rows, t0 = [], time.perf_counter()
     out = open(args.out, "w") if args.out else None
     for dtype in (torch.float32, torch.bfloat16):

@@ -214,3 +214,92 @@ def test_kernel_wrappers_refuse_bad_biases_and_dtypes(what, change, pattern):
         lstm.launch_forward(**args)
     with pytest.raises((ValueError, TypeError), match=pattern):
         lstm.launch_backward(dy, dy, dy, **args)
+
+
+def exact_fma(a: float, b: float, c: float) -> np.float32:
+    """fmaf(a, b, c) rounded once to f32 (nearest, ties to even), from
+    the exact rational value."""
+    from fractions import Fraction
+    exact = Fraction(a) * Fraction(b) + Fraction(c)
+    x = np.float32(float(exact))
+    cands = [np.nextafter(x, np.float32(-np.inf)), x,
+             np.nextafter(x, np.float32(np.inf))]
+    return min(cands, key=lambda v: (abs(Fraction(float(v)) - exact),
+                                     int(np.float32(v).view(np.int32)) & 1))
+
+
+def test_fma_f32_rounds_once():
+    """``lstm.fma_f32`` (float64 with the sum's error kept) against the
+    exact rational fmaf on values of spread exponents, and on sums that
+    lie halfway between two f32 values in float64 while the exact value
+    does not (where rounding the float64 sum again would be wrong)."""
+    rng = np.random.default_rng(0)
+    n = 3000
+    a = (rng.normal(size=n) * 2.0 ** rng.integers(-20, 20, n)).astype(
+        np.float32)
+    b = rng.normal(size=n).astype(np.float32)
+    c = (rng.normal(size=n) * 2.0 ** rng.integers(-20, 20, n)).astype(
+        np.float32)
+    # ties: a * b = 2^-24 (1 + 4688 * 2^-46), half an ulp of c = 1 and a
+    # little more, whose float64 sum with c rounds to 1 + 2^-24, a tie
+    # that rounding again breaks to 1 and the exact value to 1 + 2^-23;
+    # and the same negated
+    a[:2] = np.float32(1 + 2896 * 2.0 ** -23) * np.float32([1, -1])
+    b[:2] = np.float32(2.0 ** -24 * (1 - 2895 * 2.0 ** -23))
+    c[:2] = np.float32([1.0, -1.0])
+    naive = (a[:2].astype(np.float64) * b[:2] + c[:2]).astype(np.float32)
+    assert list(naive) == [1.0, -1.0]
+    got = lstm.fma_f32(*(torch.from_numpy(v) for v in (a, b, c))).numpy()
+    want = np.array([exact_fma(float(x), float(y), float(z))
+                     for x, y, z in zip(a, b, c)])
+    np.testing.assert_array_equal(got, want)
+
+
+class OrderedDh(torch.autograd.Function):
+    """``torch.bmm(h, w_t)`` whose input gradient is summed as the card's
+    cuBLAS sums autograd's product (``lstm.dh_product``); the weight
+    gradient as autograd's."""
+
+    @staticmethod
+    def forward(ctx, h, w_t):
+        ctx.save_for_backward(h, w_t)
+        return BMM(h, w_t)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w_t = ctx.saved_tensors
+        return (lstm.dh_product(g.contiguous(), w_t.transpose(1, 2)),
+                BMM(h.transpose(1, 2), g))
+
+
+BMM = torch.bmm
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(5, 7, 6, 1)])
+def test_backward_reference_sums_dh_as_the_card(monkeypatch, shape):
+    """f32: the written-out backward (the backward kernel's algorithm) sums
+    dh = dz @ W_hh in the kernel's order, one fmaf chain over the 4H rows
+    ascending (at H = 1 two chains of two rows, added), and its dxm is
+    then bit for bit the plain version's autograd on the card, whose
+    cuBLAS product sums in that order at B > 1
+    (``scripts/lstm_db_spread.py --dh_order``): here autograd of the
+    plain cell with that product's input gradient summed so."""
+    xm, w_hh, b_ih, b_hh, dy = recurrence_inputs(shape, torch.float32)
+    dz = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(2, shape[1], 4 * shape[3])).astype(np.float32))
+    rows = [(dz[:, :, r:r + 1], w_hh[:, None, r]) for r in range(dz.shape[2])]
+    if shape[3] == 1:
+        want = (lstm.fma_f32(*rows[1], rows[0][0] * rows[0][1])
+                + lstm.fma_f32(*rows[3], rows[2][0] * rows[2][1]))
+    else:
+        want = rows[0][0] * rows[0][1]
+        for a, b in rows[1:]:
+            want = lstm.fma_f32(a, b, want)
+    assert torch.equal(lstm.dh_product(dz, w_hh), want)
+    leaves = [t.clone().requires_grad_() for t in (xm, w_hh, b_ih, b_hh)]
+    monkeypatch.setattr(torch, "bmm", OrderedDh.apply)
+    y = lstm.recurrence_reference(*leaves)
+    monkeypatch.undo()
+    y.backward(dy)
+    dxm = lstm.bilstm_backward_reference(xm, w_hh, b_ih, b_hh, dy)[0]
+    assert torch.equal(dxm, leaves[0].grad)
