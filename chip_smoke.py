@@ -815,11 +815,12 @@ def misalign(t):
     return view
 
 
-def launched(spmm, fn):
+def launched(fn):
     """fn()'s result and the kernel variants it launched, with counts."""
-    before = Counter(spmm.gather_segment_sum.variant_launches)
+    from kpgnn_tpu_torch.utils.profiling import launch_counts
+    before = launch_counts("gather_segment_sum")
     out = fn()
-    after = Counter(spmm.gather_segment_sum.variant_launches)
+    after = launch_counts("gather_segment_sum")
     after.subtract(before)
     return out, {k: v for k, v in after.items() if v}
 
@@ -1253,17 +1254,19 @@ def sim_phase(ctx):
     --graphs SIM_SWEEP_GRAPHS: its JSON table written, K x n rates in
     [0, 1], and one fused launch a forward at each K's width.  Returns the
     main run's and the sweep's launches per (variant, D)."""
+    from kpgnn_tpu_torch.utils.profiling import (launch_counts,
+                                                 reset_launch_counts)
     import numpy as np
     torch, spmm = ctx.torch, ctx.spmm
     from kpgnn_tpu_torch.scripts import run_simulation as sim
 
     base = ["--backend", "pallas", "--seed", str(SEED)]
     args = sim.parser().parse_args(base)
-    spmm.reset_launch_counts()
+    reset_launch_counts()
     rate = sim.main(base + ["--device", "cuda"])
     torch.cuda.synchronize()
-    v = dict(spmm.gather_segment_sum.variant_launches)
-    w = +Counter(spmm.gather_segment_sum.width_launches)
+    v = dict(launch_counts("gather_segment_sum"))
+    w = +launch_counts("gather_segment_sum", by_shape=True)
     D = args.hidden_size // args.K
     expect = {ctx.fused_v: args.graphs * args.num_layer}
     rate_cpu = sim.main(base + ["--device", "cpu"])
@@ -1292,12 +1295,12 @@ def sim_phase(ctx):
                   "equal within rounding on both")
         log(f"[sim] the rates differ: {one_side} pairs collide on one "
             f"device only, each equal within rounding on both")
-    spmm.reset_launch_counts()
+    reset_launch_counts()
     plot = os.path.join(ctx.work, "sim", "simulation.png")
     sweep = ["--sweep", "--graphs", str(SIM_SWEEP_GRAPHS)]
     table = sim.main(base + sweep + ["--device", "cuda", "--plot_path", plot])
     torch.cuda.synchronize()
-    ws = +Counter(spmm.gather_segment_sum.width_launches)
+    ws = +launch_counts("gather_segment_sum", by_shape=True)
     per = len(sim.SWEEP_NS) * SIM_SWEEP_GRAPHS
     expect_w = Counter()
     for K in sim.SWEEP_KS:
@@ -1328,15 +1331,17 @@ def search_phase(ctx):
     """[search]: run_search's sr_search preset, its first config, for one
     epoch on the SR25 fixture through the kernel: one finite result.
     Returns its launches per (variant, D)."""
+    from kpgnn_tpu_torch.utils.profiling import (launch_counts,
+                                                 reset_launch_counts)
     import math
     from kpgnn_tpu_torch.scripts import run_search
-    ctx.spmm.reset_launch_counts()
+    reset_launch_counts()
     res = run_search.main([
         "--preset", "sr_search", "--limit", "1", "--base",
         f"--device cuda --backend pallas --num_epochs 1 --seed {SEED} "
         f"--dataset_dir {ctx.work} --save_dir "
         f"{os.path.join(ctx.work, 'search')}"])
-    w = +Counter(ctx.spmm.gather_segment_sum.width_launches)
+    w = +launch_counts("gather_segment_sum", by_shape=True)
     log(f"[search] sr_search, first config: {res}; launches by width "
         f"{dict(w)}")
     check(len(res) == 1 and res[0]["script"] == "sr"
@@ -1460,6 +1465,8 @@ def profile_phase(ctx):
     each stage's time and top device ops.  Returns the flagship run's
     launches and profile_step's (the large stage: D=34, scalar) per
     (variant, D)."""
+    from kpgnn_tpu_torch.utils.profiling import (launch_counts,
+                                                 reset_launch_counts)
     import io
     torch, spmm = ctx.torch, ctx.spmm
     from kpgnn_tpu_torch.scripts import profile_step
@@ -1471,10 +1478,10 @@ def profile_phase(ctx):
 
     @contextlib.contextmanager
     def counting_trace(*a, **kw):
-        before = Counter(spmm.gather_segment_sum.variant_launches)
+        before = launch_counts("gather_segment_sum")
         with plain_trace(*a, **kw) as p:
             yield p
-        after = Counter(spmm.gather_segment_sum.variant_launches)
+        after = launch_counts("gather_segment_sum")
         after.subtract(before)
         traced.update(+after)
     run = SimpleNamespace(**dict(
@@ -1504,7 +1511,7 @@ def profile_phase(ctx):
     check(in_trace == traced == Counter(expect),
           f"profile: trace {dict(in_trace)}, counter {dict(traced)}, "
           f"expected {expect}")
-    spmm.reset_launch_counts()
+    reset_launch_counts()
     buf = io.StringIO()
     t0 = time.perf_counter()
     try:
@@ -1517,7 +1524,7 @@ def profile_phase(ctx):
         raise SmokeFailure(f"profile_step exited with {e.code}")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    wp = +Counter(spmm.gather_segment_sum.width_launches)
+    wp = +launch_counts("gather_segment_sum", by_shape=True)
     keep, top = [], 0
     for x in buf.getvalue().splitlines():
         if x.startswith(("resident epoch", "dense ", "large-graph", "[stage",
@@ -2239,10 +2246,11 @@ def _parallel_rank(rank, world, jobs, device):
     group, the all-reduced gradients, the kernel launches of that step
     (the counters set to 0 just before it), then the job's further steps
     and PAR_TIMED timed ones; the parameters after the job's steps."""
+    from kpgnn_tpu_torch.utils.profiling import (launch_counts,
+                                                 reset_launch_counts)
     import torch
     from kpgnn_tpu_torch.models.factory import make_model
     from kpgnn_tpu_torch.nn.inits import init_parameters
-    from kpgnn_tpu_torch.ops import spmm
     from kpgnn_tpu_torch.parallel.dp import make_parallel_train_step
     from kpgnn_tpu_torch.parallel.multihost import (host_shard_loader,
                                                     lockstep_group_count)
@@ -2299,21 +2307,21 @@ def _parallel_rank(rank, world, jobs, device):
                 job["order"], job["B"], world, store.num_graphs)
             epoch = make_parallel_resident_train_epoch(
                 model, opt, mesh, job["loss"])
-            spmm.reset_launch_counts()
+            reset_launch_counts()
             with relu_branches(torch, relu, replay=False):
                 first, _ = epoch(store, chunks[:1])
             _sync(torch, dev)
             res.update(loss=first, relu=relu, grads={
                 n: p.grad.cpu() for n, p in model.named_parameters()
                 if p.grad is not None},
-                launches=dict(spmm.gather_segment_sum.variant_launches),
+                launches=dict(launch_counts("gather_segment_sum")),
                 steps=len(chunks))
             epoch(store, chunks[1:])
             res["params"] = {n: p.detach().cpu()
                              for n, p in model.named_parameters()}
             out[job["label"]] = res
             continue
-        spmm.reset_launch_counts()
+        reset_launch_counts()
         with relu_branches(torch, relu, replay=False):
             lsum, cnt = step(model, opt, batches[0], job["loss"])
         _sync(torch, dev)
@@ -2321,8 +2329,9 @@ def _parallel_rank(rank, world, jobs, device):
                    grads={n: p.grad.cpu()
                           for n, p in model.named_parameters()
                           if p.grad is not None},
-                   launches=dict(spmm.gather_segment_sum.variant_launches),
-                   widths=dict(spmm.gather_segment_sum.width_launches))
+                   launches=dict(launch_counts("gather_segment_sum")),
+                   widths=dict(launch_counts("gather_segment_sum",
+                                             by_shape=True)))
         for b in batches[1:]:
             step(model, opt, b, job["loss"])
         _sync(torch, dev)
@@ -2804,14 +2813,16 @@ def tools_phase(ctx):
     0 before each and read after it.  tune_pallas must launch the gather
     and the fused form at each of its widths, scaling_estimate's ici mode
     both at D=104.  Returns {script: launches by (variant, D)}."""
+    from kpgnn_tpu_torch.utils.profiling import (launch_counts,
+                                                 reset_launch_counts)
     spmm = ctx.spmm
     out = {}
     for name, phase in (("tune_pallas", tune_phase),
                         ("scaling_estimate", scaling_phase),
                         ("make_parity_golden", parity_golden_phase)):
-        spmm.reset_launch_counts()
+        reset_launch_counts()
         phase(ctx)
-        out[name] = +Counter(spmm.gather_segment_sum.width_launches)
+        out[name] = +launch_counts("gather_segment_sum", by_shape=True)
         ctx.mark(f"tools {name}")
     for label, (_, D) in ctx.tool_plans.items():
         w = out[label.split()[0]]
@@ -2913,6 +2924,8 @@ def api_phase(ctx):
     flagship's, count_parameters the JAX count, 2L fused + 2L gather
     launches, the first-step loss [train]'s (rtol 1e-4), and the train
     step on the card's clock.  Returns its launches by (variant, D)."""
+    from kpgnn_tpu_torch.utils.profiling import (launch_counts,
+                                                 reset_launch_counts)
     import numpy as np
     import kpgnn_tpu_torch as kt
     from kpgnn_tpu_torch.train.loop import train_step
@@ -2950,7 +2963,7 @@ def api_phase(ctx):
     check(n_params == FLAGSHIP_PARAMS, f"api: count_parameters {n_params} "
           f"!= the flagship's {FLAGSHIP_PARAMS}")
     rows = []
-    spmm.reset_launch_counts()
+    reset_launch_counts()
     model, _ = kt.Trainer(
         model, kt.TrainConfig(lr=args.lr, num_epochs=1, batch_size=BATCH,
                               seed=SEED),
@@ -2958,8 +2971,8 @@ def api_phase(ctx):
             loader, seed=SEED,
             epoch_callback=lambda e, m, row: rows.append(row))
     torch.cuda.synchronize()
-    v = dict(spmm.gather_segment_sum.variant_launches)
-    w = +Counter(spmm.gather_segment_sum.width_launches)
+    v = dict(launch_counts("gather_segment_sum"))
+    w = +launch_counts("gather_segment_sum", by_shape=True)
     losses = rows[0]["step_losses"]
     expect = {fused_v: 2 * L, gather_v: 2 * L}
     rel = abs(losses[0] - ctx.zloss) / abs(ctx.zloss)
@@ -3314,6 +3327,8 @@ def lstm_phase(ctx):
     kernels-line entry without its launches}, {label: BiLSTM kernel
     launches by (variant, T, H) of the train step}, {kernel name:
     launches of one flagship BiLSTM call} or None)."""
+    from kpgnn_tpu_torch.utils.profiling import (launch_counts,
+                                                 reset_launch_counts)
     torch, dev = ctx.torch, ctx.dev
     from kpgnn_tpu_torch.models.factory import make_model
     from kpgnn_tpu_torch.nn.inits import init_parameters
@@ -3335,7 +3350,7 @@ def lstm_phase(ctx):
             calls.append((mod, args[0].detach().float(), tm))
         hooks = [m.register_forward_pre_hook(record, with_kwargs=True)
                  for m in model.modules() if isinstance(m, lstm.BiLSTM)]
-        lstm.reset_launch_counts()
+        reset_launch_counts()
         try:
             train_step(model, make_optimizer(model.parameters(), 1e-3),
                        batch.to(dev))
@@ -3343,9 +3358,9 @@ def lstm_phase(ctx):
             for h in hooks:
                 h.remove()
         torch.cuda.synchronize()
-        step_launches[label] = +Counter(lstm.launches)
+        step_launches[label] = +launch_counts("bilstm", by_shape=True)
         per_variant = Counter()
-        for (vname, _, _), n in step_launches[label].items():
+        for (vname, _), n in step_launches[label].items():
             per_variant[vname] += n
         check(dict(per_variant) == {
             lstm.variant_name("fwd", torch.float32): len(calls),
@@ -3904,7 +3919,8 @@ def determinism_phase(ctx):
     deterministic algorithms in a process of its own
     (``determinism_child``).  Returns {leg: (its first batch on the
     card, the sorted sums' launches of one run by (variant, D))}."""
-    from kpgnn_tpu_torch.ops import segment
+    from kpgnn_tpu_torch.utils.profiling import (launch_counts,
+                                                 reset_launch_counts)
 
     torch = ctx.torch
     batches = first_batches(ctx.tl, DET_STEPS)
@@ -3917,11 +3933,11 @@ def determinism_phase(ctx):
           f"{det_text(*default)}")
     legs = {}
     for label, cfg, lb, loss in det_legs(ctx):
-        segment.reset_launch_counts()
+        reset_launch_counts()
         runs = [det_steps(torch, cfg, lb, ctx.dev, loss) for _ in range(2)]
         torch.cuda.synchronize()
-        w = Counter({k: n // 2 for k, n in
-                     segment.sorted_segment_sum.width_launches.items()})
+        w = Counter({k: n // 2 for k, n in launch_counts(
+            "sorted_segment_sum", by_shape=True).items()})
         res = det_compare(runs)
         log(f"[determinism] {label}: {DET_STEPS} {cfg.model_name} K={cfg.K} "
             f"H={cfg.hidden_size} steps twice from seed {SEED}, default "
@@ -3971,7 +3987,7 @@ def main():
     from kpgnn_tpu_torch.models.factory import make_model
     from kpgnn_tpu_torch.nn.basic import TorchLinear
     from kpgnn_tpu_torch.nn.inits import init_parameters
-    from kpgnn_tpu_torch.ops import cuda_lib, segment, spmm
+    from kpgnn_tpu_torch.ops import cuda_lib, spmm
     from kpgnn_tpu_torch.ops import lstm as lstm_ops
     from kpgnn_tpu_torch.ops.lstm import BiLSTM
     from kpgnn_tpu_torch.prep import native
@@ -3985,6 +4001,8 @@ def main():
                                                 build_dense_store, gather_any)
     from kpgnn_tpu_torch.train.state import make_optimizer
     from kpgnn_tpu_torch.scripts import profile_step as profile_script
+    from kpgnn_tpu_torch.utils.profiling import (launch_counts,
+                                                 reset_launch_counts)
 
     common.set_full_f32()
     dev = torch.device("cuda")
@@ -4272,13 +4290,13 @@ def main():
             # kernel: forward over fwd, autograd backward over bwd
             xk = (misalign(x) if mis else x.clone()).requires_grad_(True)
             out, v_f = launched(
-                spmm, lambda: spmm._GatherSegment.apply(xk, fwd, bwd))
-            _, v_b = launched(spmm, lambda: (out * w).sum().backward())
+                lambda: spmm._GatherSegment.apply(xk, fwd, bwd))
+            _, v_b = launched(lambda: (out * w).sum().backward())
             out = out.detach()
             # the backward gathers the gradient in x's dtype (a bf16 x
             # takes the bf16 variant over bwd, as the main path's --bf16)
             wg = w if dtype == torch.float32 else w.to(dtype)
-            grad_k, v_g = launched(spmm, lambda: bwd.gather(wg))
+            grad_k, v_g = launched(lambda: bwd.gather(wg))
             check(xk.grad.dtype == dtype
                   and torch.equal(xk.grad, grad_k.to(dtype)),
                   f"{name}: autograd backward is not the kernel over bwd")
@@ -4383,8 +4401,8 @@ def main():
             xk = (misalign(x) if mis else x.clone()).requires_grad_(True)
             t1k, tkk = (t.clone().requires_grad_(True) for t in (t1, tk))
             out, v_f = launched(
-                spmm, lambda: spmm._FusedKHop.apply(xk, t1k, tkk, sub))
-            _, v_b = launched(spmm, lambda: (out * w).sum().backward())
+                lambda: spmm._FusedKHop.apply(xk, t1k, tkk, sub))
+            _, v_b = launched(lambda: (out * w).sum().backward())
             out = out.detach()
             # dx gathers the gradient in x's dtype; the table gradients
             # take it in f32
@@ -4541,7 +4559,7 @@ def main():
                     variants[spmm.variant_name(dtype, not mis, fused)] = (
                         csr, inputs, tabs if fused else {})
         for vname, (csr, inputs, kw) in variants.items():
-            outs, v = launched(spmm, lambda: [csr.gather(inputs[0], **kw)
+            outs, v = launched(lambda: [csr.gather(inputs[0], **kw)
                                               for _ in range(3)])
             check(v == {vname: 3}, f"determinism: {vname} launched {v}")
             check(all(torch.equal(outs[0], o) for o in outs[1:]),
@@ -4582,7 +4600,7 @@ def main():
             model = model.to(device)
             b = batch.to(device)
             with torch.no_grad():
-                (lsum, cnt), v = launched(spmm, lambda: _masked_loss(
+                (lsum, cnt), v = launched(lambda: _masked_loss(
                     model(b, train=True), b.y,
                     _batch_target_mask(b, sl.node_level), sl.loss))
             check(not v, f"a first step on {device} launched {v}")
@@ -4616,15 +4634,14 @@ def main():
                     if "running" in n}
                 if getattr(sl, "on_epoch", None):
                     sl.on_epoch(epoch, model, row)
-            spmm.reset_launch_counts()
-            lstm_ops.reset_launch_counts()
+            reset_launch_counts()
             t0 = time.perf_counter()
             result = sl.main(sl.argv, epoch_callback=on_epoch)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-            v = dict(spmm.gather_segment_sum.variant_launches)
-            w = +Counter(spmm.gather_segment_sum.width_launches)
-            sl.lstm_w = +Counter(lstm_ops.launches)
+            v = dict(launch_counts("gather_segment_sum"))
+            w = +launch_counts("gather_segment_sum", by_shape=True)
+            sl.lstm_w = +launch_counts("bilstm", by_shape=True)
             losses = np.concatenate([r["step_losses"] for r in rows])
             n_tr = sl.epochs * sl.train_steps
             n_ev = sl.epochs * sl.val_steps + sl.test_steps * sum(
@@ -4659,10 +4676,10 @@ def main():
                      lstm_ops.variant_name("bwd", ldt): n_tr * n_bi}
                     if n_bi else {})
             lv = Counter()
-            for (vname, _, _), n in sl.lstm_w.items():
+            for (vname, _), n in sl.lstm_w.items():
                 lv[vname] += n
             log(f"[{label}] BiLSTM kernel launches {dict(lv)} (expected "
-                f"{lexp}), by (variant, T, H) {dict(sl.lstm_w)}")
+                f"{lexp}), by (variant, (T, H)) {dict(sl.lstm_w)}")
             check(dict(lv) == lexp, f"{label}: BiLSTM kernel launches "
                   f"{dict(lv)} != {lexp} ({n_bi} BiLSTMs a forward)")
             refs = {"CPU": first_step_loss(sl, first_batch(
@@ -4670,12 +4687,12 @@ def main():
             sl.sorted_sums = {}
             for name in backends:
                 fb_ = first_batch(sl.loaders[name])
-                segment.reset_launch_counts()
+                reset_launch_counts()
                 refs[f"--backend {name} on the card"] = first_step_loss(
                     sl, fb_, dev)
                 torch.cuda.synchronize()
-                sl.sorted_sums[name] = (fb_.to(dev), +Counter(
-                    segment.sorted_segment_sum.width_launches))
+                sl.sorted_sums[name] = (fb_.to(dev), +launch_counts(
+                    "sorted_segment_sum", by_shape=True))
             got = float(losses[0])
             rel = {k: abs(got - x) / abs(x) for k, x in refs.items()}
             log(f"[{label}] first-step loss GPU {got:.7f}, " + ", ".join(
@@ -4766,17 +4783,15 @@ def main():
             lambda mod, args, out, n=n: out_dtypes.__setitem__(n, out.dtype))
             for n, m in bmodel.named_modules()
             if isinstance(m, (TorchLinear, BiLSTM))]
-        lstm_ops.reset_launch_counts()
+        reset_launch_counts()
         try:
-            _, v = launched(spmm, bf16_step)
+            _, v = launched(bf16_step)
         finally:
             for h in hooks:
                 h.remove()
         check(v == {fused_b: L, gather_b: L},
               f"the bf16 train step launched {v}")
-        blv = Counter()
-        for (vname, _, _), n in lstm_ops.launches.items():
-            blv[vname] += n
+        blv = launch_counts("bilstm")
         n_bi = sum(isinstance(m, BiLSTM) for m in bmodel.modules())
         bl_expect = {lstm_ops.variant_name("fwd", torch.bfloat16): n_bi,
                      lstm_ops.variant_name("bwd", torch.bfloat16): n_bi}
@@ -5031,7 +5046,7 @@ def main():
         def step_grads(model, batch, lr, wd, loss, node_level=False):
             """(loss, {parameter: grad on the host}, launches) of one
             optimizer step."""
-            (lsum, cnt), v = launched(spmm, lambda: train_step(
+            (lsum, cnt), v = launched(lambda: train_step(
                 model, make_optimizer(model.parameters(), lr, wd), batch,
                 loss, node_level=node_level))
             return (float(lsum / cnt),
@@ -5053,12 +5068,12 @@ def main():
             def fresh():
                 return init_parameters(make_model(cfg), SEED)
             card_relu = []
-            w0 = Counter(spmm.gather_segment_sum.width_launches)
+            w0 = launch_counts("gather_segment_sum", by_shape=True)
             with relu_branches(torch, card_relu, replay=False):
                 loss_g, grads_g, v_g = step_grads(
                     fresh().to(dev), batch.to(dev), *hp, loss, node_level)
             torch.cuda.synchronize()
-            w = Counter(spmm.gather_segment_sum.width_launches)
+            w = launch_counts("gather_segment_sum", by_shape=True)
             w.subtract(w0)
             loss_c, grads_own, v_c = step_grads(fresh(), batch, *hp, loss,
                                                 node_level)
@@ -5144,7 +5159,7 @@ def main():
         check(rel <= 1e-4, f"dense: first-step loss differs by {rel:.2e} "
               f"from the pallas run's > 1e-4")
         pd = QM9_H // PRIME_K
-        lstm_ops.reset_launch_counts()
+        reset_launch_counts()
         prime_w = gradient_gate(
             "qm9", f"KPGINPrime K={PRIME_K} L={PRIME_L}", pmcfg, ptl,
             (pargs.lr, pargs.l2_wd), "mse",
@@ -5155,9 +5170,9 @@ def main():
         check(dict(prime_w) == expect_pw,
               f"KPGINPrime launches by width {dict(prime_w)} != {expect_pw} "
               f"(one K-hop layer at D={pd}, then GINE at D={QM9_H})")
-        prime_lstm_w = +Counter(lstm_ops.launches)
+        prime_lstm_w = +launch_counts("bilstm", by_shape=True)
         log(f"[qm9] KPGINPrime K={PRIME_K} gated step: BiLSTM kernel "
-            f"launches by (variant, T, H) {dict(prime_lstm_w)}")
+            f"launches by (variant, (T, H)) {dict(prime_lstm_w)}")
 
         mark("dense and KPGINPrime")
         # ---- 8. the generated-data scripts at their canonical widths ----
@@ -5272,7 +5287,7 @@ def main():
 
         times = {}
         for vname, (csr, inputs, kw) in variants.items():
-            times[vname], v = launched(spmm, lambda: timed(csr, inputs, kw))
+            times[vname], v = launched(lambda: timed(csr, inputs, kw))
             check(set(v) == {vname}, f"timing {vname} launched {v}")
             log(f"[time] {vname} over {'fwd' if kw else 'bwd'} "
                 f"{show(times[vname])}")
@@ -5359,7 +5374,7 @@ def main():
                     ("fwd", sub.fwd, xf, kw, fv),
                     ("bwd", sub.bwd, xb, {}, gv),
                     ("fwd", sub.fwd, xf, {}, gv)):
-                t, v = launched(spmm, lambda: timed(csr, xs, k))
+                t, v = launched(lambda: timed(csr, xs, k))
                 check(set(v) == {vname}, f"timing {label} {vname} launched "
                       f"{v}")
                 out[vname, what] = t
@@ -5381,7 +5396,7 @@ def main():
                 x.reshape(CSL_K, cn, -1), kw["table1"], kw["tablek"], cplan,
                 scale=dis, sender_scale=dis, hop_major=True)
         with torch.no_grad():
-            _, v = launched(spmm, lambda: gcn(xf[0]))
+            _, v = launched(lambda: gcn(xf[0]))
             check(v == {gather_v: 1}, f"the KPGCN aggregation launched {v}")
             ms_gcn = time_ms(torch, gcn, xf)
         log(f"[time] csl k={CSL_K} D={CSL_H // CSL_K}: KPGCN aggregation "
@@ -5397,7 +5412,7 @@ def main():
 
         def csl_step():
             return train_step(cmodel, copt, cb, "cross_entropy")
-        _, v = launched(spmm, csl_step)
+        _, v = launched(csl_step)
         check(v == {fused_v: CSL_L, gather_v: CSL_L},
               f"the CSL train step launched {v}")
         cstep_ms = host_step_ms(torch, csl_step)
@@ -5424,7 +5439,7 @@ def main():
 
             def qm9_step():
                 return train_step(qmodel, qopt, qb, "mse")
-            _, v = launched(spmm, qm9_step)
+            _, v = launched(qm9_step)
             check(v == expect, f"the {label} train step launched {v}")
             qstep_ms = host_step_ms(torch, qm9_step)
             log(f"[time] {label} train step {qstep_ms:.2f} ms, "
@@ -5453,7 +5468,7 @@ def main():
 
         def nprop_step():
             return train_step(nmodel, nopt, nb, "mse", node_level=True)
-        _, v = launched(spmm, nprop_step)
+        _, v = launched(nprop_step)
         check(v == {fused_v: sl.L, gather_v: sl.L},
               f"the node-property train step launched {v}")
         nstep_ms = host_step_ms(torch, nprop_step)
@@ -5629,8 +5644,8 @@ def main():
             continue
         e = dict(e)
         shape_th = e.pop("T"), e.pop("H")
-        n = sum(c for (v, t, h), c in run_w.items() if v == e["variant"]
-                and (t, h) == shape_th)
+        n = sum(c for (v, th), c in run_w.items() if v == e["variant"]
+                and th == shape_th)
         check(n > 0, f"{e['name']}: its run launched it {n} times")
         entries.append(dict(e, launches=n))
     log("[phases] seconds: " + ", ".join(

@@ -25,6 +25,7 @@ from ..ops.adjacency import COOAdj, DenseAdj
 from ..ops.banded import (BANDED_TILE, DEFAULT_HALO_CAP, HALO_ALIGN,
                           build_banded)
 from ..ops.spmm import build_plan
+from ..utils.profiling import span
 from .data import Graph
 
 
@@ -287,8 +288,9 @@ def collate_pallas(
                     spec=spec, y_is_node_level=y_is_node_level)
     coo = batch.adj
     em = coo.edge_mask.numpy()
-    plan = build_plan(coo.receivers.numpy()[em], coo.senders.numpy()[em],
-                      coo.edge_attr.numpy()[em], coo.n_nodes, v1, vk)
+    with span("loader.build_plan"):
+        plan = build_plan(coo.receivers.numpy()[em], coo.senders.numpy()[em],
+                          coo.edge_attr.numpy()[em], coo.n_nodes, v1, vk)
     return batch.replace(adj=plan)
 
 

@@ -35,6 +35,7 @@ from ..ops.adjacency import hop_major_native
 from ..ops.lstm import BiLSTM
 from ..ops.segment import segment_sum
 from ..ops.sharded_adjacency import node_axis, preduce
+from ..utils.profiling import span
 
 
 def _dropout(x: torch.Tensor, rate: float, train: bool,
@@ -221,17 +222,18 @@ class _Backbone(nn.Module):
         the peripheral embedding in the same dtype ((K, N, W) with
         ``hop_major``: one transpose per forward) and the initial
         virtual-node state (or None)."""
-        x = self.init_encoder(batch)
-        if x.dim() == 3 and x.shape[1] == 1:
-            x = x[:, 0]
-        if self.use_rd and batch.rd is not None:
-            x = x + self.rd_projection(batch.rd)
-        x = x.to(self.compute_dtype)
-        peripheral = self.peripheral(batch, self.K).to(x.dtype)
-        if hop_major:
-            peripheral = peripheral.transpose(0, 1)
-        vn = (self.virtualnode.initial(batch.g_pad)
-              if self.virtualnode is not None else None)
+        with span("model.encode"):
+            x = self.init_encoder(batch)
+            if x.dim() == 3 and x.shape[1] == 1:
+                x = x[:, 0]
+            if self.use_rd and batch.rd is not None:
+                x = x + self.rd_projection(batch.rd)
+            x = x.to(self.compute_dtype)
+            peripheral = self.peripheral(batch, self.K).to(x.dtype)
+            if hop_major:
+                peripheral = peripheral.transpose(0, 1)
+            vn = (self.virtualnode.initial(batch.g_pad)
+                  if self.virtualnode is not None else None)
         return x, peripheral, vn
 
     def _layers(self, batch, h_list, vn, layer_call, layers, train,
@@ -244,26 +246,29 @@ class _Backbone(nn.Module):
         (GNNPlus's ``last_h``)."""
         L, vn_mod = self.L, self.virtualnode
         for l in layers:                                    # noqa: E741
-            pre = h_list[l]
-            if vn_mod is not None:
-                h_list[l] = pre + vn_mod.broadcast(vn, batch, pre.dtype)
-            h = layer_call(l, h_list[l])
-            h = _apply_norm(getattr(self, f"norm{l}"), h, batch, train)
-            if always_drop or l != L - 1:
-                h = _dropout(h, self.drop_prob, train, generator)
-            if self.residual:
-                h = h + (pre if residual_pre_vn else h_list[l])
-            h_list.append(h)
-            if vn_mod is not None and l < L - 1:
-                vn = vn_mod.update(l, h_list[l], vn, batch, train,
-                                   self.residual, self.drop_prob, generator)
+            with span("model.layer"):
+                pre = h_list[l]
+                if vn_mod is not None:
+                    h_list[l] = pre + vn_mod.broadcast(vn, batch, pre.dtype)
+                h = layer_call(l, h_list[l])
+                h = _apply_norm(getattr(self, f"norm{l}"), h, batch, train)
+                if always_drop or l != L - 1:
+                    h = _dropout(h, self.drop_prob, train, generator)
+                if self.residual:
+                    h = h + (pre if residual_pre_vn else h_list[l])
+                h_list.append(h)
+                if vn_mod is not None and l < L - 1:
+                    vn = vn_mod.update(l, h_list[l], vn, batch, train,
+                                       self.residual, self.drop_prob,
+                                       generator)
         return vn
 
     def _readout(self, h_list, train, generator) -> torch.Tensor:
-        rep = _jumping_knowledge(self.JK, h_list,
-                                 getattr(self, "attention_lstm", None))
-        rep = self.output_proj(rep)
-        return _dropout(F.relu(rep), self.drop_prob, train, generator)
+        with span("model.readout"):
+            rep = _jumping_knowledge(self.JK, h_list,
+                                     getattr(self, "attention_lstm", None))
+            rep = self.output_proj(rep)
+            return _dropout(F.relu(rep), self.drop_prob, train, generator)
 
 
 class GNNPlus(_Backbone):

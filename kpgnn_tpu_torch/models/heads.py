@@ -13,6 +13,7 @@ from ..nn.basic import TorchLinear
 from ..ops.segment import (segment_max, segment_mean, segment_softmax,
                            segment_sum)
 from ..ops.sharded_adjacency import all_reduce_max, all_reduce_sum, node_axis
+from ..utils.profiling import span
 
 
 def pool_nodes(x: torch.Tensor, batch: GraphBatch, method: str,
@@ -78,8 +79,9 @@ class _GraphHead(nn.Module):
 
     def pooled(self, batch, train, generator):
         x = self.embedding_model(batch, train=train, generator=generator)
-        return pool_nodes(x, batch, self.pooling_method,
-                          getattr(self, "pool_gate", None))
+        with span("model.pool"):
+            return pool_nodes(x, batch, self.pooling_method,
+                              getattr(self, "pool_gate", None))
 
 
 class GraphClassification(_GraphHead):

@@ -23,6 +23,7 @@ from torch import nn
 from ..ops.adjacency import degree, hop_major_native, khop_aggregate_adj
 from ..ops.banded import BandedAdj
 from ..ops.sharded_adjacency import node_axis
+from ..utils.profiling import span
 from .basic import MLP, TorchLinear
 from .combine import make_combine
 from .embed import small_table_lookup, zero_row
@@ -116,7 +117,8 @@ class _HopLayer(_EdgeTables):
     def _combine(self, h: torch.Tensor, hm: bool) -> torch.Tensor:
         if self.K == 1:
             return h[0] if hm else h[:, 0]
-        return self.combine_proj(self.combine(h, hop_major=hm))
+        with span("layer.combine"):
+            return self.combine_proj(self.combine(h, hop_major=hm))
 
 
 def _hop_matmul(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -157,14 +159,16 @@ class KPGINConv(_HopLayer):
     def forward(self, x, adj, pe_attr=None, peripheral_attr=None,
                 node_mask=None, train: bool = False) -> torch.Tensor:
         hm = hop_major_native(adj)
-        x = self._path_encoding(self._split(x, hm), pe_attr, hm)
-        x_n = khop_aggregate_adj(adj, x, self.hop1_edge_emb,
-                                 self.hopk_edge_emb, hop_major=hm)
-        if peripheral_attr is not None:
-            x_n = x_n + peripheral_attr
-        h = x_n + (1.0 + (self.eps if self.eps is not None else 0.0)) * x
-        h = F.relu(_hop_matmul(h, self.hop_proj1, self.hop_bias1, hm))
-        h = F.relu(_hop_matmul(h, self.hop_proj2, self.hop_bias2, hm))
+        with span("layer.aggregate"):
+            x = self._path_encoding(self._split(x, hm), pe_attr, hm)
+            x_n = khop_aggregate_adj(adj, x, self.hop1_edge_emb,
+                                     self.hopk_edge_emb, hop_major=hm)
+            if peripheral_attr is not None:
+                x_n = x_n + peripheral_attr
+        with span("layer.mlp"):
+            h = x_n + (1.0 + (self.eps if self.eps is not None else 0.0)) * x
+            h = F.relu(_hop_matmul(h, self.hop_proj1, self.hop_bias1, hm))
+            h = F.relu(_hop_matmul(h, self.hop_proj2, self.hop_bias2, hm))
         return self._combine(h, hm)
 
 
@@ -184,6 +188,11 @@ class KPGCNConv(_HopLayer):
     def forward(self, x, adj, pe_attr=None, peripheral_attr=None,
                 node_mask=None, train: bool = False) -> torch.Tensor:
         hm = hop_major_native(adj)
+        with span("layer.aggregate"):
+            h = self._aggregate(x, adj, pe_attr, peripheral_attr, hm)
+        return self._combine(h, hm)
+
+    def _aggregate(self, x, adj, pe_attr, peripheral_attr, hm):
         x = self._path_encoding(self._split(self.hop_proj(x), hm), pe_attr,
                                 hm)
         deg = degree(adj, add_self_loop=True)               # (N, K)
@@ -216,7 +225,7 @@ class KPGCNConv(_HopLayer):
         h = F.relu(agg)
         if peripheral_attr is not None:
             h = h + peripheral_attr
-        return self._combine(h, hm)
+        return h
 
 
 class KPGraphSAGEConv(_HopLayer):
@@ -241,15 +250,18 @@ class KPGraphSAGEConv(_HopLayer):
     def forward(self, x, adj, pe_attr=None, peripheral_attr=None,
                 node_mask=None, train: bool = False) -> torch.Tensor:
         hm = hop_major_native(adj)
-        x = self._path_encoding(self._split(x, hm), pe_attr, hm)
-        x_n = khop_aggregate_adj(adj, x, self.hop1_edge_emb,
-                                 self.hopk_edge_emb, aggr=self.aggr,
-                                 hop_major=hm)
-        if peripheral_attr is not None:
-            x_n = x_n + peripheral_attr
-        h = _hop_matmul(torch.cat([x, x_n], dim=-1), self.hop_proj,
-                        self.hop_bias, hm)
-        return self._combine(_l2_normalize(F.relu(h)), hm)
+        with span("layer.aggregate"):
+            x = self._path_encoding(self._split(x, hm), pe_attr, hm)
+            x_n = khop_aggregate_adj(adj, x, self.hop1_edge_emb,
+                                     self.hopk_edge_emb, aggr=self.aggr,
+                                     hop_major=hm)
+            if peripheral_attr is not None:
+                x_n = x_n + peripheral_attr
+        with span("layer.mlp"):
+            h = _hop_matmul(torch.cat([x, x_n], dim=-1), self.hop_proj,
+                            self.hop_bias, hm)
+            h = _l2_normalize(F.relu(h))
+        return self._combine(h, hm)
 
 
 class KPGINPlusConv(_EdgeTables):
@@ -270,15 +282,21 @@ class KPGINPlusConv(_EdgeTables):
 
     def forward(self, x, adj, pe_attr=None, peripheral_attr=None,
                 node_mask=None, train: bool = False) -> torch.Tensor:
-        x = _add_path_encoding_hm(x, self.hopk_node_path_emb, pe_attr)
-        x_n = khop_aggregate_adj(adj, x, self.hop1_edge_emb,
-                                 self.hopk_edge_emb, hop_major=True)
-        x_n = F.gelu(x_n, approximate="none")
-        if peripheral_attr is not None:
-            x_n = x_n + peripheral_attr
-        h = self.combine(x_n, hop_major=True) if self.K > 1 else x_n[0]
-        return self.mlp(h, mask=node_mask, train=train,
-                        group=node_axis(adj))
+        with span("layer.aggregate"):
+            x = _add_path_encoding_hm(x, self.hopk_node_path_emb, pe_attr)
+            x_n = khop_aggregate_adj(adj, x, self.hop1_edge_emb,
+                                     self.hopk_edge_emb, hop_major=True)
+            x_n = F.gelu(x_n, approximate="none")
+            if peripheral_attr is not None:
+                x_n = x_n + peripheral_attr
+        if self.K > 1:
+            with span("layer.combine"):
+                h = self.combine(x_n, hop_major=True)
+        else:
+            h = x_n[0]
+        with span("layer.mlp"):
+            return self.mlp(h, mask=node_mask, train=train,
+                            group=node_axis(adj))
 
 
 class GINEConv(nn.Module):
@@ -307,12 +325,14 @@ class GINEConv(nn.Module):
     def forward(self, x, adj, node_mask=None,
                 train: bool = False) -> torch.Tensor:
         x = x.reshape(-1, 1, self.H)
-        out = khop_aggregate_adj(adj.slice_hops(1), x, self.hop1_edge_emb,
-                                 None)
-        eps = self.eps if self.eps is not None else self.eps_init
-        out = out + (1.0 + eps) * x
-        return self.mlp(out[:, 0], mask=node_mask, train=train,
-                        group=node_axis(adj))
+        with span("layer.aggregate"):
+            out = khop_aggregate_adj(adj.slice_hops(1), x,
+                                     self.hop1_edge_emb, None)
+            eps = self.eps if self.eps is not None else self.eps_init
+            out = out + (1.0 + eps) * x
+        with span("layer.mlp"):
+            return self.mlp(out[:, 0], mask=node_mask, train=train,
+                            group=node_axis(adj))
 
 
 def make_gnn_layer(model_name: str, hidden_size: int, K: int,

@@ -37,7 +37,6 @@ rounds to it; the kernels' bf16 variants round at the same points.
 """
 from __future__ import annotations
 
-import collections
 import ctypes
 import math
 from typing import Dict, Tuple
@@ -45,20 +44,13 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
+from ..utils.profiling import count_launch
 from . import cuda_lib
 
 KERNEL_SOURCE = "bilstm.cu"
 # hidden sizes the kernel takes (the source's kMaxH): the attention
 # combine's H = K (16 at most, KPGINPrime K=16) and JK attention's H = L
 MAX_HIDDEN = 16
-
-# kernel launches by (variant_name, T, H); reset_launch_counts() zeroes it
-launches: collections.Counter = collections.Counter()
-
-
-def reset_launch_counts() -> None:
-    launches.clear()
-
 
 def _suffix(dtype: torch.dtype) -> str:
     return "f32" if dtype == torch.float32 else "bf16"
@@ -364,7 +356,7 @@ def launch_forward(xm: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
         y.data_ptr(), c.data_ptr(), T, B, H, _rows_apart(B, H, xm.dtype),
         _stream(xm))
     _raise_on(err, "forward")
-    launches[variant_name("fwd", xm.dtype), T, H] += 1
+    count_launch("bilstm", variant_name("fwd", xm.dtype), (T, H))
     return y, c
 
 
@@ -400,7 +392,7 @@ def launch_backward(dy: torch.Tensor, y: torch.Tensor, c: torch.Tensor,
         _ticket_counters(xm.device, stream).data_ptr(), T, B, H,
         _rows_apart(B, H, xm.dtype), stream)
     _raise_on(err, "backward")
-    launches[variant_name("bwd", xm.dtype), T, H] += 1
+    count_launch("bilstm", variant_name("bwd", xm.dtype), (T, H))
     dt = w_hh.dtype
     db = db.to(dt)
     return dxm, dw.to(dt), db, db.reshape(-1).clone()

@@ -24,12 +24,12 @@ first (one host sync a call) and raise; the card tests turn it on.
 """
 from __future__ import annotations
 
-import collections
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import count_launch
 from . import spmm
 
 # the JAX package's bound for its one-hot segment sums
@@ -101,11 +101,12 @@ def sorted_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     do, to keep a padded tail out of every segment (a COO batch's pad
     edges, a banded spill's sentinel rows).  On a CUDA tensor (f32 or
     bf16) one launch of the gather kernel with identity senders, counted
-    in ``sorted_segment_sum.variant_launches`` / ``width_launches`` (not
-    in the kernel plan's counts); its backward gathers the gradient rows
-    by ``grad_rows`` (default ``segment_grad_rows``, a caller may keep
-    it with the batch).  On the CPU the plain version, ``index_add_``
-    over the same entries in the same order."""
+    under the family ``sorted_segment_sum`` in ``utils.profiling``'s
+    launch counts (not under the kernel plan's ``gather_segment_sum``);
+    its backward gathers the gradient rows by ``grad_rows`` (default
+    ``segment_grad_rows``, a caller may keep it with the batch).  On the
+    CPU the plain version, ``index_add_`` over the same entries in the
+    same order."""
     if CHECK_SORTED and not bool((segment_ids[1:] >= segment_ids[:-1]).all()):
         raise ValueError("sorted_segment_sum: the segment ids are not "
                          "sorted")
@@ -178,8 +179,7 @@ class _SortedSegmentSum(torch.autograd.Function):
         spmm._check(x, indptr, senders, num_segments, None, None, None, 0,
                     ())
         out, variant = spmm.launch_kernel(x, indptr, senders, num_segments)
-        sorted_segment_sum.variant_launches[variant] += 1
-        sorted_segment_sum.width_launches[variant, x.shape[1]] += 1
+        count_launch("sorted_segment_sum", variant, x.shape[1])
         return out.reshape((num_segments,) + tuple(data.shape[1:])).to(
             data.dtype)
 
@@ -193,17 +193,6 @@ class _SortedSegmentSum(torch.autograd.Function):
         g2 = F.pad(g.reshape(n, -1), (0, 0, 0, 1))     # row n reads 0
         return (g2.index_select(0, rows).reshape(
             (rows.shape[0],) + tuple(g.shape[1:])), None, None, None, None)
-
-
-def reset_launch_counts() -> None:
-    sorted_segment_sum.variant_launches.clear()
-    sorted_segment_sum.width_launches.clear()
-
-
-# the sorted sums' kernel launches, by spmm.variant_name and by
-# (variant_name, row width D)
-sorted_segment_sum.variant_launches = collections.Counter()
-sorted_segment_sum.width_launches = collections.Counter()
 
 
 def onehot_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,

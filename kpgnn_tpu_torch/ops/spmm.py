@@ -33,7 +33,6 @@ the table gradients ``counts.T @ g`` are taken in f32.
 """
 from __future__ import annotations
 
-import collections
 import ctypes
 import dataclasses
 from typing import Optional, Tuple
@@ -41,6 +40,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import count_launch
 from . import cuda_lib
 
 KERNEL_SOURCE = "gather_segment_sum.cu"
@@ -428,8 +428,7 @@ def gather_segment_sum(x: torch.Tensor, indptr: torch.Tensor,
                                             table1, tablek, rows_per_hop)
     out, variant = launch_kernel(x, indptr, senders, n_rows, codes, table1,
                                  tablek, rows_per_hop, hop_live)
-    gather_segment_sum.variant_launches[variant] += 1
-    gather_segment_sum.width_launches[variant, x.shape[1]] += 1
+    count_launch("gather_segment_sum", variant, x.shape[1])
     return out
 
 
@@ -483,16 +482,6 @@ def variant_name(dtype: torch.dtype, vec: bool, fused: bool) -> str:
     return (f"gather_segment_sum{'_fused' if fused else ''}"
             f"[{'f32' if dtype == torch.float32 else 'bf16'},"
             f"{'vec' if vec else 'scalar'}]")
-
-
-def reset_launch_counts() -> None:
-    gather_segment_sum.variant_launches.clear()
-    gather_segment_sum.width_launches.clear()
-
-
-# every kernel launch, by variant_name and by (variant_name, row width D)
-gather_segment_sum.variant_launches = collections.Counter()
-gather_segment_sum.width_launches = collections.Counter()
 
 
 def _grad_gather(csr: HopCSR, g: torch.Tensor, dtype) -> torch.Tensor:

@@ -22,12 +22,14 @@ from ..graph.batch import (BucketSpec, GraphBatch, collate, collate_banded,
                            collate_dense, collate_pallas)
 from ..graph.data import Graph
 from ..ops.banded import BANDED_TILE, DEFAULT_HALO_CAP, HALO_ALIGN
+from ..utils.profiling import span
 
 
 def background_iter(factory, maxsize: int = 2):
     """Run ``factory()`` (an iterator) on a daemon thread and yield its
     items through a bounded queue.  Abandoning the generator cancels the
-    producer: its puts are timed and observe a cancel event."""
+    producer: its puts are timed and observe a cancel event.  Each wait
+    for the queue is a ``loop.wait`` span on the consuming thread."""
     q: "queue.Queue" = queue.Queue(maxsize=maxsize)
     SENTINEL = object()
     cancel = threading.Event()
@@ -54,7 +56,8 @@ def background_iter(factory, maxsize: int = 2):
     t.start()
     try:
         while True:
-            item = q.get()
+            with span("loop.wait"):
+                item = q.get()
             if item is SENTINEL:
                 break
             if isinstance(item, BaseException):
@@ -167,25 +170,27 @@ class GraphLoader:
         return math.ceil(len(self.graphs) / self.batch_size)
 
     def _collate(self, batch_graphs) -> GraphBatch:
-        if self.mode == "dense":
-            return collate_dense(batch_graphs, n_slot=self.n_slot, v1=self.v1,
-                                 vk=self.vk, g_pad=self.g_pad,
-                                 y_is_node_level=self.y_is_node_level)
-        if self.mode == "coo":
-            return collate(batch_graphs, n_pad=self.n_pad, e_pad=self.e_pad,
-                           g_pad=self.g_pad,
-                           y_is_node_level=self.y_is_node_level)
-        if self.mode == "banded":
-            return collate_banded(
+        with span("loader.collate"):
+            if self.mode == "dense":
+                return collate_dense(batch_graphs, n_slot=self.n_slot,
+                                     v1=self.v1, vk=self.vk,
+                                     g_pad=self.g_pad,
+                                     y_is_node_level=self.y_is_node_level)
+            if self.mode == "coo":
+                return collate(batch_graphs, n_pad=self.n_pad,
+                               e_pad=self.e_pad, g_pad=self.g_pad,
+                               y_is_node_level=self.y_is_node_level)
+            if self.mode == "banded":
+                return collate_banded(
+                    batch_graphs, v1=self.v1, vk=self.vk, n_pad=self.n_pad,
+                    e_pad=self.e_pad, g_pad=self.g_pad,
+                    y_is_node_level=self.y_is_node_level,
+                    halo=self.banded_halo, spill_pad=self.banded_spill_pad,
+                    gcn_norm=self.banded_gcn_norm)
+            return collate_pallas(
                 batch_graphs, v1=self.v1, vk=self.vk, n_pad=self.n_pad,
                 e_pad=self.e_pad, g_pad=self.g_pad,
-                y_is_node_level=self.y_is_node_level, halo=self.banded_halo,
-                spill_pad=self.banded_spill_pad,
-                gcn_norm=self.banded_gcn_norm)
-        return collate_pallas(
-            batch_graphs, v1=self.v1, vk=self.vk, n_pad=self.n_pad,
-            e_pad=self.e_pad, g_pad=self.g_pad,
-            y_is_node_level=self.y_is_node_level)
+                y_is_node_level=self.y_is_node_level)
 
     def __iter__(self) -> Iterator[GraphBatch]:
         bs = self.batch_size

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from ..graph.batch import GraphBatch
 from ..nn.inits import init_parameters
+from ..utils.profiling import span
 from .config import TrainConfig
 from .lr import ReduceLROnPlateau
 from .state import get_lr, make_optimizer, set_lr
@@ -70,12 +71,15 @@ def train_step(model, opt, batch: GraphBatch, loss: str = "l1",
     """One optimizer step; returns (loss sum, count) as device tensors.
     ``node_level`` targets are counted over the real nodes, others over
     the real graphs."""
-    pred = model(batch, train=True, generator=generator)
-    lsum, cnt = _masked_loss(pred, batch.y,
-                             _batch_target_mask(batch, node_level), loss)
-    opt.zero_grad(set_to_none=True)
-    (lsum / torch.clamp(cnt, min=1.0)).backward()
-    opt.step()
+    with span("step.forward"):
+        pred = model(batch, train=True, generator=generator)
+        lsum, cnt = _masked_loss(pred, batch.y,
+                                 _batch_target_mask(batch, node_level), loss)
+    with span("step.backward"):
+        opt.zero_grad(set_to_none=True)
+        (lsum / torch.clamp(cnt, min=1.0)).backward()
+    with span("step.optimizer"):
+        opt.step()
     return lsum.detach(), cnt.detach()
 
 
@@ -109,14 +113,16 @@ def eval_step(model, batch: GraphBatch, loss: str = "l1",
     train_SR.py:46-47), and discards the running-statistics updates, as
     the JAX eval step discards its mutated ``batch_stats``; dropout, if
     any, draws from a generator seeded 0 (the JAX step's fixed key)."""
-    if bn_train_mode:
-        gen = torch.Generator(device=batch.node_mask.device).manual_seed(0)
-        with frozen_buffers(model):
-            pred = model(batch, train=True, generator=gen)
-    else:
-        pred = model(batch, train=False)
-    mask = _batch_target_mask(batch, node_level)
-    lsum, cnt = _masked_loss(pred, batch.y, mask, loss)
+    with span("step.forward"):
+        if bn_train_mode:
+            gen = torch.Generator(
+                device=batch.node_mask.device).manual_seed(0)
+            with frozen_buffers(model):
+                pred = model(batch, train=True, generator=gen)
+        else:
+            pred = model(batch, train=False)
+        mask = _batch_target_mask(batch, node_level)
+        lsum, cnt = _masked_loss(pred, batch.y, mask, loss)
     out = {"loss_sum": lsum, "count": cnt}
     which = loss if metric == "same" else metric
     if which == "accuracy" or loss == "cross_entropy":
@@ -145,8 +151,12 @@ def device_prefetch(iterable, device):
     the thread."""
     from .loader import background_iter
 
-    return background_iter(lambda: (b.to(device) for b in iterable),
-                           maxsize=PREFETCH_DEPTH)
+    def copies():
+        for b in iterable:
+            with span("prefetch.copy"):
+                b = b.to(device)
+            yield b
+    return background_iter(copies, maxsize=PREFETCH_DEPTH)
 
 
 def _nbytes(obj) -> int:
@@ -207,7 +217,8 @@ def train_epoch(model, opt, batches, loss: str = "l1",
     sums: List[torch.Tensor] = []
     counts: List[torch.Tensor] = []
     for batch in batches:
-        lsum, cnt = step(model, opt, batch, loss, generator, node_level)
+        with span("loop.step"):
+            lsum, cnt = step(model, opt, batch, loss, generator, node_level)
         sums.append(lsum)
         counts.append(cnt)
     if not sums:
@@ -224,8 +235,11 @@ def evaluate(model, batches, loss: str = "l1", metric: str = "same",
     ``node_level``) of all batches (``summarize_eval_sums``), with one
     host sync; ``bn_train_mode`` as in ``eval_step``, whose signature and
     result ``step`` has."""
-    steps = [step(model, b, loss, metric, node_level, bn_train_mode)
-             for b in batches]
+    steps = []
+    for b in batches:
+        with span("loop.step"):
+            steps.append(step(model, b, loss, metric, node_level,
+                              bn_train_mode))
     sums = {k: torch.stack([s[k] for s in steps]).double().sum(0).cpu()
             .numpy() for k in steps[0]}
     return summarize_eval_sums(sums)

@@ -1,7 +1,13 @@
+"""Utilities: logging, meters, seeds, activation capture for parity,
+profiling (counterpart of kpgnn_tpu/utils).
+
+Not exported: ``timed`` (the JAX package's wall-clock block timer); the
+port marks stretches of the program with ``profiling.span``, timed on
+the profiler's clock."""
 from .logging import get_logger, get_save_dir
 from .meters import AverageMeter
 from .parity import capture_activations, dump_activations
-from .profiling import timed, trace
+from .profiling import trace
 from .seed import get_seed, seed_everything
 
 
@@ -16,5 +22,5 @@ def get_available_devices():
 
 
 __all__ = ["get_logger", "get_save_dir", "get_seed", "seed_everything",
-           "AverageMeter", "get_available_devices", "trace", "timed",
+           "AverageMeter", "get_available_devices", "trace",
            "capture_activations", "dump_activations"]

@@ -22,8 +22,6 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..ops.lstm import BiLSTM
-
 
 def _key(name: str) -> str:
     return "/".join(name.split(".") + ["__call__"]) if name else "__call__"
@@ -32,6 +30,8 @@ def _key(name: str) -> str:
 @torch.no_grad()
 def capture_activations(model: torch.nn.Module, batch,
                         jax_layout: bool = False) -> Dict[str, np.ndarray]:
+    from ..ops.lstm import BiLSTM       # ops imports utils.profiling
+
     out: Dict[str, np.ndarray] = {}
 
     def hook(name):

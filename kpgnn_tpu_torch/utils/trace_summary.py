@@ -17,6 +17,15 @@ device track unless its name starts with ``/host``.  Kernels on one
 stream do not overlap, so summing durations by name attributes the
 device's busy time.
 
+The program's spans (``utils.profiling.span``: ``user_annotation``
+events) are listed beside the top ops: their count, their host time and
+the device time of the kernels, copies and sets launched inside them.  A
+device event is matched to its launch (the CUDA runtime call of the same
+``correlation`` id) and counts toward every span that holds the launch
+on the launching thread.  The autograd engine launches a backward's
+kernels from a thread of its own that holds no span: their time is
+reported as launched outside every span.
+
 CLI: ``python -m kpgnn_tpu_torch.utils.trace_summary <logdir-or-trace>
 [top_n]``
 """
@@ -28,6 +37,8 @@ import json
 import os
 from collections import defaultdict
 from typing import Dict, List, Tuple
+
+import numpy as np
 
 TRACE_PATTERNS = ("*.pt.trace.json", "*.pt.trace.json.gz", "*.trace.json.gz",
                   "*.json", "*.json.gz")
@@ -106,9 +117,44 @@ def top_ops(tracks: Dict[str, dict], device_only: bool = True,
     return [(op, us, us / total if total else 0.0) for op, us in ranked]
 
 
+def span_summary(events: List[dict]) -> Tuple[Dict[str, dict], float]:
+    """({span name: {"count", "host_us", "device_us"}}, the device us
+    launched outside every span) of a torch.profiler trace; ({}, 0.0)
+    where it holds no span."""
+    xs = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    spans = [e for e in xs if e.get("cat") == "user_annotation"]
+    launch = {e["args"]["correlation"]: (e["tid"], e["ts"]) for e in xs
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in (e.get("args") or {})}
+    dev = [(launch.get((e.get("args") or {}).get("correlation"),
+                       ("", np.nan)), e["dur"]) for e in xs
+           if str(e.get("cat", "")).lower() in DEVICE_CATS]
+    out: Dict[str, dict] = {}
+    by_track: Dict[tuple, list] = defaultdict(list)
+    for e in spans:
+        s = out.setdefault(e["name"], {"count": 0, "host_us": 0.0,
+                                       "device_us": 0.0})
+        s["count"] += 1
+        s["host_us"] += e["dur"]
+        by_track[e["tid"], e["name"]].append((e["ts"], e["ts"] + e["dur"]))
+    inside = np.zeros(len(dev), bool)
+    tid = np.array([str(t) for (t, _), _ in dev])
+    ts = np.array([t for (_, t), _ in dev], np.float64)
+    dur = np.array([d for _, d in dev], np.float64)
+    for (t, name), iv in by_track.items():
+        iv.sort()
+        lo, hi = (np.array(a, np.float64) for a in zip(*iv))
+        k = np.searchsorted(lo, ts, side="right") - 1
+        hit = (tid == str(t)) & (k >= 0) & (ts <= hi[np.maximum(k, 0)])
+        out[name]["device_us"] += float(dur[hit].sum())
+        inside |= hit
+    return out, float(dur[~inside].sum())
+
+
 def report(path: str, n: int = 25) -> str:
     trace = find_trace(path)
-    tracks = summarize(load_events(trace))
+    events = load_events(trace)
+    tracks = summarize(events)
     lines = [f"trace: {trace}"]
     for name in sorted(tracks, key=lambda k: -tracks[k]["total_us"]):
         t = tracks[name]
@@ -120,6 +166,16 @@ def report(path: str, n: int = 25) -> str:
     lines.append(f"top ops by {scope} time:")
     for op, us, frac in rows:
         lines.append(f"  {us / 1e3:9.3f} ms  {frac * 100:5.1f}%  {op}")
+    spans, outside = span_summary(events)
+    if spans:
+        lines.append("spans: count, host ms, device ms launched "
+                     "inside:")
+        for name in sorted(spans, key=lambda k: -spans[k]["host_us"]):
+            s = spans[name]
+            lines.append(f"  {s['count']:6d}  {s['host_us'] / 1e3:9.3f} ms "
+                         f" {s['device_us'] / 1e3:9.3f} ms  {name}")
+        lines.append(f"  device ms launched outside every span: "
+                     f"{outside / 1e3:.3f}")
     return "\n".join(lines)
 
 

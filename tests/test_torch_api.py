@@ -56,7 +56,8 @@ torch.set_num_threads(1)
 SUBPACKAGES = ["graph", "prep", "ops", "nn", "models", "train", "data",
                "parallel", "utils", "scripts"]
 # names the JAX package exports whose form is JAX's own (flax
-# initializers and state, jit step factories, shard_map inputs); each
+# initializers and state, jit step factories, shard_map inputs), and
+# utils' wall-clock block timer, which the port's spans replace; each
 # port __init__ names them in its docstring with the port's counterpart
 JAX_ONLY = {
     "nn": {"torch_linear_kernel_init", "torch_linear_bias_init",
@@ -64,6 +65,7 @@ JAX_ONLY = {
     "train": {"TrainState", "create_train_state", "make_train_step",
               "make_eval_step"},
     "parallel": {"stack_batches", "batch_pspecs"},
+    "utils": {"timed"},
 }
 # the process group and the eval step of one process a rank
 PORT_ONLY = {"parallel": {"Mesh", "spawn", "make_parallel_eval_step"}}

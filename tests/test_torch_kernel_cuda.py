@@ -31,6 +31,7 @@ import pytest
 import torch
 
 from kpgnn_tpu_torch.ops import spmm
+from kpgnn_tpu_torch.utils.profiling import launch_counts
 
 pytestmark = pytest.mark.cuda
 
@@ -101,7 +102,7 @@ V1, VK = 5, 7
 def run(form, plan, x, t1, tk, w):
     """One forward and autograd backward; the outputs and the launches
     per variant."""
-    before = Counter(spmm.gather_segment_sum.variant_launches)
+    before = launch_counts("gather_segment_sum")
     xk = x.clone().requires_grad_(True)
     t1k, tkk = (t.clone().requires_grad_(True) for t in (t1, tk))
     if form == "gather":
@@ -110,7 +111,7 @@ def run(form, plan, x, t1, tk, w):
         out = spmm._FusedKHop.apply(xk, t1k, tkk, plan)
     (out * w).sum().backward()
     torch.cuda.synchronize()
-    launches = Counter(spmm.gather_segment_sum.variant_launches)
+    launches = launch_counts("gather_segment_sum")
     launches.subtract(before)
     return dict(out=out.detach(), dx=xk.grad, dt1=t1k.grad, dtk=tkk.grad,
                 launches=+launches)

@@ -39,6 +39,7 @@ import pytest
 import torch
 
 from kpgnn_tpu_torch.ops import lstm
+from kpgnn_tpu_torch.utils.profiling import launch_counts, reset_launch_counts
 
 pytestmark = pytest.mark.cuda
 
@@ -91,12 +92,12 @@ def test_kernel_against_plain_version(dev, T, H, dtype):
         exact = run(lstm.recurrence_reference, *inputs)
         cast = [t.to(dtype) for t in inputs]
         plain = run(lstm.recurrence_reference, *cast)
-        lstm.reset_launch_counts()
+        reset_launch_counts()
         got = run(lstm.recurrence, *cast)
         torch.cuda.synchronize()
-        assert dict(lstm.launches) == {
-            (lstm.variant_name("fwd", dtype), T, H): 1,
-            (lstm.variant_name("bwd", dtype), T, H): 1}, B
+        assert dict(launch_counts("bilstm", by_shape=True)) == {
+            (lstm.variant_name("fwd", dtype), (T, H)): 1,
+            (lstm.variant_name("bwd", dtype), (T, H)): 1}, B
         for name, g, p, e in zip(NAMES, got, plain, exact):
             assert g.dtype == dtype and g.shape == e.shape, (name, B)
             if B == 0:

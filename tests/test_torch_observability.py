@@ -20,7 +20,7 @@ from kpgnn_tpu_torch.train.loop import Trainer
 from kpgnn_tpu_torch.utils import trace_summary as ts
 from kpgnn_tpu_torch.utils.parity import (capture_activations,
                                           dump_activations)
-from kpgnn_tpu_torch.utils.profiling import timed, trace
+from kpgnn_tpu_torch.utils.profiling import trace
 from tests.test_torch_model import ACT, golden_model_and_batch
 
 torch.set_num_threads(1)
@@ -110,6 +110,50 @@ def test_trace_summary_reads_torch_profiler_traces(tmp_path, gz):
     assert "top ops by device time:" in rep and "aten::mm" not in rep
 
 
+def span_trace():
+    """Spans on the loop's thread (1) and the prefetch thread (3), the
+    autograd engine's launch on thread 2, and the device events they
+    launched, matched by correlation id; a memset matches no launch."""
+    def x(cat, tid, ts, dur, name, **args):
+        return {"ph": "X", "cat": cat, "pid": 1, "tid": tid, "ts": ts,
+                "dur": dur, "name": name, "args": args}
+    return {"traceEvents": [
+        x("user_annotation", 1, 0, 100, "loop.step"),
+        x("user_annotation", 1, 10, 20, "model.pool"),
+        x("cuda_runtime", 1, 12, 2, "cudaLaunchKernel", correlation=1),
+        x("cuda_runtime", 1, 50, 2, "cudaLaunchKernel", correlation=2),
+        x("cuda_runtime", 2, 60, 2, "cudaLaunchKernel", correlation=3),
+        x("user_annotation", 3, 0, 200, "prefetch.copy"),
+        x("cuda_runtime", 3, 5, 2, "cudaMemcpyAsync", correlation=4),
+        x("kernel", 0, 20, 7, GATHER, correlation=1, device=0),
+        x("kernel", 0, 55, 11, FUSED, correlation=2, device=0),
+        x("kernel", 0, 70, 13, GATHER, correlation=3, device=0),
+        x("gpu_memcpy", 0, 90, 17, "Memcpy HtoD (Pageable -> Device)",
+          correlation=4, device=0),
+        x("gpu_memset", 0, 120, 3, "Memset (Device)", device=0),
+    ]}
+
+
+def test_trace_summary_lists_spans_with_their_device_time(tmp_path):
+    """Each span's count, host time and the device time launched inside
+    it on its own thread; the rest is launched outside every span."""
+    events = span_trace()["traceEvents"]
+    spans, outside = ts.span_summary(events)
+    assert spans == {
+        "loop.step": {"count": 1, "host_us": 100.0, "device_us": 18.0},
+        "model.pool": {"count": 1, "host_us": 20.0, "device_us": 7.0},
+        "prefetch.copy": {"count": 1, "host_us": 200.0, "device_us": 17.0}}
+    assert outside == 16.0
+    assert ts.span_summary(TORCH_TRACE["traceEvents"]) == ({}, 57.0)
+    rep = ts.report(write_trace(tmp_path / "s.pt.trace.json", span_trace(),
+                                False))
+    assert "spans: count, host ms, device ms launched inside:" in rep
+    assert "       1      0.100 ms      0.018 ms  loop.step" in rep
+    assert "device ms launched outside every span: 0.016" in rep
+    assert "spans:" not in ts.report(write_trace(
+        tmp_path / "t.pt.trace.json", TORCH_TRACE, False))
+
+
 def test_trace_summary_cli_and_missing_trace(tmp_path, capsys):
     with pytest.raises(FileNotFoundError):
         ts.find_trace(str(tmp_path))
@@ -121,7 +165,7 @@ def test_trace_summary_cli_and_missing_trace(tmp_path, capsys):
     assert out.count(" ms  ") == 2 and FUSED in out
 
 
-def test_profiling_trace_writes_a_cpu_trace(tmp_path, capsys):
+def test_profiling_trace_writes_a_cpu_trace(tmp_path):
     """A real torch.profiler trace on the CPU: a chrome trace in the
     directory with the block's operators and no device track, so the
     report ranks host time, as the JAX module's does without a device."""
@@ -134,9 +178,6 @@ def test_profiling_trace_writes_a_cpu_trace(tmp_path, capsys):
     assert set(tracks) == {"/host:CPU"}
     assert "aten::mm" in tracks["/host:CPU"]["ops"]
     assert "host (no device track in trace)" in ts.report(str(tmp_path))
-    with timed("block"):
-        pass
-    assert capsys.readouterr().out.startswith("block: ")
 
 
 def test_trainer_profile_dir_traces_one_epoch(tmp_path):
@@ -161,6 +202,10 @@ def test_trainer_profile_dir_traces_one_epoch(tmp_path):
         ops = ts.summarize(ts.load_events(ts.find_trace(str(prof))))[
             "/host:CPU"]
         assert ops["counts"]["Optimizer.step#Adam.step"] == 4
+        spans, _ = ts.span_summary(ts.load_events(ts.find_trace(str(prof))))
+        assert spans["loop.step"]["count"] == 4
+        assert spans["step.optimizer"]["count"] == 4
+        assert "loop.step" in ts.report(str(prof))
 
 
 def test_capture_activations_equals_the_golden_modules(tmp_path):

@@ -43,6 +43,7 @@ import torch
 from kpgnn_tpu_torch.ops import segment, spmm
 from kpgnn_tpu_torch.ops.segment import (ONEHOT_SEGMENTS_MAX, segment_sum,
                                          sorted_segment_sum)
+from kpgnn_tpu_torch.utils.profiling import launch_counts, reset_launch_counts
 
 pytestmark = pytest.mark.cuda
 
@@ -169,12 +170,12 @@ def test_sorted_segment_sum_repeats_and_counts(dev, D, dtype):
     data, ids, indptr = sorted_case(D, grid=False, dtype=dtype)
     w = torch.randn(SORTED_SEGMENTS, D,
                     generator=torch.Generator().manual_seed(4))
-    segment.reset_launch_counts()
+    reset_launch_counts()
     runs = [sorted_run(data.to(dev), ids.to(dev), indptr.to(dev), w.to(dev))
             for _ in range(3)]
     variant = spmm.variant_name(dtype, D * data.element_size() % 16 == 0,
                                 False)
-    assert dict(segment.sorted_segment_sum.width_launches) == {
+    assert dict(launch_counts("sorted_segment_sum", by_shape=True)) == {
         (variant, D): 3}
     for out, grad in runs[1:]:
         assert torch.equal(out, runs[0][0])
@@ -202,11 +203,11 @@ def test_segment_sum_takes_the_sorted_sum_above_the_bound(dev):
     launches the kernel once; ``sorted=False`` does not."""
     data, ids, indptr = sorted_case(104, grid=True, dtype=torch.float32)
     data, ids = data.to(dev), ids.to(dev)
-    segment.reset_launch_counts()
+    reset_launch_counts()
     a = segment_sum(data, ids, SORTED_SEGMENTS, indptr=indptr.to(dev))
-    assert sum(segment.sorted_segment_sum.variant_launches.values()) == 1
+    assert sum(launch_counts("sorted_segment_sum").values()) == 1
     b = segment_sum(data, ids, SORTED_SEGMENTS, sorted=False)
-    assert sum(segment.sorted_segment_sum.variant_launches.values()) == 1
+    assert sum(launch_counts("sorted_segment_sum").values()) == 1
     # grid values: every order gives the same sums, the tail's included
     tail = torch.zeros_like(a).index_add_(0, ids[-700:].long(), data[-700:])
     assert torch.equal(a + tail, b)

@@ -43,6 +43,7 @@ from kpgnn_tpu_torch.ops.adjacency import khop_aggregate_adj
 from kpgnn_tpu_torch.ops.banded import banded_khop_aggregate
 from kpgnn_tpu_torch.parallel.partition import partition_batch
 from kpgnn_tpu_torch.train import resident as tres
+from kpgnn_tpu_torch.utils.profiling import launch_counts, reset_launch_counts
 from tests.test_torch_banded import chain_graphs
 from tests.test_torch_prep_batch import ZINC_PREP, both_prep, raw_molecules
 from tests.test_torch_segment_cuda import plain_launch
@@ -61,12 +62,12 @@ def path(request, monkeypatch):
     if request.param == "card_paths":
         monkeypatch.setattr(segment, "_on_card", lambda t: True)
         monkeypatch.setattr(spmm, "launch_kernel", plain_launch)
-    segment.reset_launch_counts()
+    reset_launch_counts()
     return request.param
 
 
 def launches():
-    return sum(segment.sorted_segment_sum.variant_launches.values())
+    return sum(launch_counts("sorted_segment_sum").values())
 
 
 def seeded_rows(segments, rows, tail, sorted_ids, seed=5):

@@ -19,6 +19,7 @@ from kpgnn_tpu_torch.ops import spmm
 from kpgnn_tpu_torch.ops.adjacency import (degree, hop_major_native,
                                            khop_aggregate_adj)
 from kpgnn_tpu_torch.ops.adjacency import union_in_degree
+from kpgnn_tpu_torch.utils.profiling import launch_counts
 
 torch.set_num_threads(1)
 FWD = dict(atol=1e-5, rtol=1e-4)
@@ -112,9 +113,9 @@ def test_gather_segment_sum_rejects_other_devices_and_types():
     with pytest.raises(TypeError):
         spmm.gather_segment_sum(torch.zeros(2, 4), csr.indptr.long(),
                                 csr.senders, 2)
-    before = dict(spmm.gather_segment_sum.variant_launches)
+    before = dict(launch_counts("gather_segment_sum"))
     spmm.gather_segment_sum(torch.zeros(2, 4), csr.indptr, csr.senders, 2)
-    assert dict(spmm.gather_segment_sum.variant_launches) == before  # plain
+    assert dict(launch_counts("gather_segment_sum")) == before  # plain
 
 
 def khop_case(seed=0, n=256, e=700, K=3, D=8, V1=5, Vk=7):

@@ -15,6 +15,7 @@ import torch
 
 import kpgnn_tpu.ops.pallas_spmm as ps
 from kpgnn_tpu_torch.ops import spmm
+from kpgnn_tpu_torch.utils.profiling import launch_counts
 
 torch.set_num_threads(1)
 TOL = dict(atol=1e-5, rtol=1e-4)
@@ -221,10 +222,10 @@ def test_khop_spmm_rejects_tables_of_other_vocabularies():
 def test_cpu_calls_count_no_launch_and_variant_names():
     senders, receivers, attr, x, t1, tk, w = padded_case(seed=3)
     plan = spmm.build_plan(receivers, senders, attr, x.shape[1], V1, VK)
-    before = dict(spmm.gather_segment_sum.variant_launches)
+    before = dict(launch_counts("gather_segment_sum"))
     spmm.khop_spmm(*(torch.from_numpy(a) for a in (x, t1, tk)), plan,
                    hop_major=True)
-    assert dict(spmm.gather_segment_sum.variant_launches) == before
+    assert dict(launch_counts("gather_segment_sum")) == before
     assert spmm.variant_name(torch.float32, True, True) \
         == "gather_segment_sum_fused[f32,vec]"
     assert spmm.variant_name(torch.bfloat16, False, False) \
