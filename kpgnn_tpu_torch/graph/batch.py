@@ -12,6 +12,13 @@ nodes carry their own slot's graph id.  ``collate_banded`` packs as
 ``collate`` does, with n_pad rounded up to the banded plan's tile
 (ops/banded.py).  Masks mark real entries everywhere.  The kernel
 plan's TPU-only rounding of n_pad up to a tile is gone.
+
+The three packing collates also carry ``graph_indptr``, the CSR of
+``node_graph_ids`` over the real nodes: the reserved pad slot is empty
+and the padded nodes lie past its end, outside every graph's range, so
+the graph-level sorted sums (ops/segment.py) never read them.  Dense
+and resident batches, whose padded nodes sit in their own graph's slot,
+and node shards leave it None: each sum then builds the ids' CSR.
 """
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ class GraphBatch:
     # --- graph-level (G = g_pad) ---
     y: Optional[torch.Tensor]               # (G, ...) or (N, ...) target
     graph_mask: torch.Tensor                # (G,) bool
+    graph_indptr: Optional[torch.Tensor] = None     # (G + 1,) int32 | None
 
     @property
     def n_pad(self) -> int:
@@ -206,15 +214,21 @@ def collate(
                  edge_attr=_t(edge_attr), edge_mask=_t(edge_mask),
                  n_nodes=n_pad, indptr=_t(indptr.astype(np.int32)),
                  grad_rows=_t(grad_rows))
+    # the graphs' CSR over the real nodes: the pad slot g_pad - 1 is
+    # empty, the padded nodes lie past graph_indptr[g_pad]
+    graph_indptr = np.searchsorted(node_graph_ids[:off_n],
+                                   np.arange(g_pad + 1))
     return _finish(graphs, adj, n_pad, g_pad, node_mask, node_graph_ids,
-                   graph_mask, y_is_node_level)
+                   graph_mask, y_is_node_level,
+                   graph_indptr=graph_indptr.astype(np.int32))
 
 
 def _finish(graphs, adj, n_pad, g_pad, node_mask, node_graph_ids,
-            graph_mask, y_is_node_level, slot=None) -> GraphBatch:
+            graph_mask, y_is_node_level, slot=None,
+            graph_indptr=None) -> GraphBatch:
     """The batch around an adjacency: every node-level field padded to
-    n_pad rows (graph b at row b * slot in dense mode), y and the
-    masks."""
+    n_pad rows (graph b at row b * slot in dense mode), y, the masks and
+    the graphs' CSR, if the caller has one."""
     def nodes(field):
         return _t(_cat_nodes(graphs, field, n_pad, slot))
     return GraphBatch(
@@ -224,7 +238,7 @@ def _finish(graphs, adj, n_pad, g_pad, node_mask, node_graph_ids,
         peripheral_config_attr=nodes("peripheral_config_attr"),
         rd=nodes("rd"), z=nodes("z"), pos=nodes("pos"), adj=adj,
         y=_t(_collate_y(graphs, g_pad, n_pad, y_is_node_level, slot)),
-        graph_mask=_t(graph_mask))
+        graph_mask=_t(graph_mask), graph_indptr=_t(graph_indptr))
 
 
 def collate_dense(

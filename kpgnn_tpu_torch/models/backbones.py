@@ -69,7 +69,7 @@ def _apply_norm(norm: nn.Module, x: torch.Tensor, batch: GraphBatch,
     if isinstance(norm, PairNorm):
         return norm(x, mask=batch.node_mask, group=group)
     return norm(x, batch.node_graph_ids, batch.g_pad, mask=batch.node_mask,
-                group=group)
+                group=group, indptr=batch.graph_indptr)
 
 
 class _PeripheralEmbed(nn.Module):
@@ -151,7 +151,8 @@ class _VirtualNode(nn.Module):
                residual: bool, drop_prob: float, generator) -> torch.Tensor:
         pooled = preduce(segment_sum(
             h_prev * batch.node_mask[:, None].to(h_prev.dtype),
-            batch.node_graph_ids, batch.g_pad).float(), node_axis(batch))
+            batch.node_graph_ids, batch.g_pad,
+            indptr=batch.graph_indptr).float(), node_axis(batch))
         out = getattr(self, f"mlp_virtualnode_{layer}")(
             pooled + vn, mask=batch.graph_mask, train=train)
         out = _dropout(out, drop_prob, train, generator)

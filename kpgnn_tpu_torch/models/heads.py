@@ -22,18 +22,20 @@ def pool_nodes(x: torch.Tensor, batch: GraphBatch, method: str,
     slots are global: on a node shard each rank pools its own nodes into
     the full table and one all-reduce over the node group completes it,
     so the pooled output (and the head and loss after it) is
-    replicated."""
-    gid, g = batch.node_graph_ids, batch.g_pad
+    replicated.  The sums read the batch's ``graph_indptr`` where it has
+    one, so the padded nodes past its end are never added."""
+    gid, g, ip = batch.node_graph_ids, batch.g_pad, batch.graph_indptr
     grp = node_axis(batch)
     m = batch.node_mask.to(x.dtype)[:, None]
     if method == "sum":
-        out = segment_sum(x * m, gid, g)
+        out = segment_sum(x * m, gid, g, indptr=ip)
         return out if grp is None else all_reduce_sum(out, grp)
     if method == "mean":
         if grp is None:
-            return segment_mean(x, gid, g, weights=batch.node_mask)
-        tot = all_reduce_sum(segment_sum(x * m, gid, g), grp)
-        cnt = all_reduce_sum(segment_sum(m, gid, g), grp)
+            return segment_mean(x, gid, g, weights=batch.node_mask,
+                                indptr=ip)
+        tot = all_reduce_sum(segment_sum(x * m, gid, g, indptr=ip), grp)
+        cnt = all_reduce_sum(segment_sum(m, gid, g, indptr=ip), grp)
         return tot / torch.clamp(cnt, min=1.0)
     if method == "max":
         xm = torch.where(batch.node_mask[:, None], x, -torch.inf)
@@ -50,16 +52,18 @@ def pool_nodes(x: torch.Tensor, batch: GraphBatch, method: str,
     if method == "attention":
         scores = gate(x)[:, 0]
         if grp is None:
-            att = segment_softmax(scores, gid, g, mask=batch.node_mask)
-            return segment_sum(x * att[:, None] * m, gid, g)
+            att = segment_softmax(scores, gid, g, mask=batch.node_mask,
+                                  indptr=ip)
+            return segment_sum(x * att[:, None] * m, gid, g, indptr=ip)
         s = torch.where(batch.node_mask, scores, -torch.inf)
         # a stabiliser only: the softmax is shift-invariant
         smax = all_reduce_max(segment_max(s.detach(), gid, g), grp)
         smax = torch.where(torch.isfinite(smax), smax, 0.0)
         ex = torch.where(batch.node_mask, torch.exp(s - smax[gid.long()]),
                          0.0)
-        denom = all_reduce_sum(segment_sum(ex, gid, g), grp)
-        num = all_reduce_sum(segment_sum(x * ex[:, None] * m, gid, g), grp)
+        denom = all_reduce_sum(segment_sum(ex, gid, g, indptr=ip), grp)
+        num = all_reduce_sum(segment_sum(x * ex[:, None] * m, gid, g,
+                                         indptr=ip), grp)
         return num / torch.clamp(denom, min=1e-16)[:, None]
     raise ValueError("The pooling method not implemented")
 

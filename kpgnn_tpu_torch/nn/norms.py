@@ -12,6 +12,9 @@ a process group (ops/sharded_adjacency.py), the masked sums and the
 per-graph segment sums are local partials, and a differentiable
 all-reduce over the group completes them, so the statistics equal the
 one-device ones (graph slots are global: per-graph partial tables add).
+The per-graph norms' sums read the batch's graph CSR where it has one
+(``indptr``, ``GraphBatch.graph_indptr``); the rows past its end are
+masked.
 """
 from __future__ import annotations
 
@@ -78,6 +81,13 @@ def _node_mask(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     return mask.to(x.dtype)[:, None]
 
 
+def _graph_sums(v, graph_ids, num_graphs, indptr, group) -> torch.Tensor:
+    """Per-graph sums of the rows of ``v``, completed over the node
+    group."""
+    return preduce(segment_sum(v, graph_ids, num_graphs, indptr=indptr),
+                   group)
+
+
 class MaskedGraphLayerNorm(nn.Module):
     """PyG LayerNorm(mode="graph"): per graph, normalize over all of its
     nodes and channels jointly, then an elementwise affine."""
@@ -95,18 +105,18 @@ class MaskedGraphLayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, graph_ids: torch.Tensor,
                 num_graphs: int, mask: Optional[torch.Tensor] = None,
-                group=None) -> torch.Tensor:
+                group=None, indptr: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         in_dtype = x.dtype
         x = x.float()
         m = _node_mask(x, mask)
-        cnt = torch.clamp(preduce(segment_sum(
-            m[:, 0] * float(x.shape[-1]), graph_ids, num_graphs), group),
-            min=1.0)
-        mean = (preduce(segment_sum((x * m).sum(-1), graph_ids, num_graphs),
-                        group) / cnt)[graph_ids][:, None]
+
+        def sums(v):
+            return _graph_sums(v, graph_ids, num_graphs, indptr, group)
+        cnt = torch.clamp(sums(m[:, 0] * float(x.shape[-1])), min=1.0)
+        mean = (sums((x * m).sum(-1)) / cnt)[graph_ids][:, None]
         xc = (x - mean) * m
-        var = (preduce(segment_sum((xc ** 2).sum(-1), graph_ids, num_graphs),
-                       group) / cnt)[graph_ids][:, None]
+        var = (sums((xc ** 2).sum(-1)) / cnt)[graph_ids][:, None]
         y = xc * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return y.to(in_dtype)
 
@@ -120,16 +130,18 @@ class MaskedInstanceNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, graph_ids: torch.Tensor,
                 num_graphs: int, mask: Optional[torch.Tensor] = None,
-                group=None) -> torch.Tensor:
+                group=None, indptr: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         in_dtype = x.dtype
         x = x.float()
         m = _node_mask(x, mask)
-        cnt = torch.clamp(preduce(segment_sum(m, graph_ids, num_graphs),
-                                  group), min=1.0)
-        mean = preduce(segment_sum(x * m, graph_ids, num_graphs), group) / cnt
+
+        def sums(v):
+            return _graph_sums(v, graph_ids, num_graphs, indptr, group)
+        cnt = torch.clamp(sums(m), min=1.0)
+        mean = sums(x * m) / cnt
         xc = (x - mean[graph_ids]) * m
-        var = preduce(segment_sum(xc ** 2, graph_ids, num_graphs),
-                      group) / cnt
+        var = sums(xc ** 2) / cnt
         return (xc * torch.rsqrt(var[graph_ids] + self.eps)).to(in_dtype)
 
 
@@ -138,9 +150,10 @@ class GraphSizeNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, graph_ids: torch.Tensor,
                 num_graphs: int, mask: Optional[torch.Tensor] = None,
-                group=None) -> torch.Tensor:
-        cnt = preduce(segment_sum(_node_mask(x, mask)[:, 0], graph_ids,
-                                  num_graphs), group)
+                group=None, indptr: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        cnt = _graph_sums(_node_mask(x, mask)[:, 0], graph_ids, num_graphs,
+                          indptr, group)
         return x * torch.rsqrt(torch.clamp(cnt, min=1.0))[graph_ids][:, None]
 
 

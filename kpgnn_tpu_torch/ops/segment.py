@@ -17,6 +17,13 @@ ids' CSR with identity senders, which adds each row's entries in index
 order without atomics; ``sorted=False`` keeps ``index_add_``.  On the
 CPU every sum is ``index_add_``, which adds in index order.
 
+The sorted sum reads the ids' CSR.  A caller that carries one passes it
+(``indptr``): a COO batch's ``COOAdj.indptr`` for its edge sums, a
+packed batch's ``GraphBatch.graph_indptr`` for its graph-level sums,
+each ending at the last real entry so the padding adds nothing;
+otherwise each sum builds it on the device (two launches).  The launch
+registry's family ``segment_csr`` counts which (``sorted_segment_sum``).
+
 The card's sorted sum trusts the caller: ids that are not sorted give a
 meaningless CSR and wrong sums on the card, where the CPU's sum is
 right.  ``CHECK_SORTED = True`` makes every sorted sum check its ids
@@ -50,7 +57,9 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     package's one-hot segment sums do.  On the card a one-hot product
     for few segments, else, for sorted f32 or bf16 rows,
     ``sorted_segment_sum`` (``indptr`` and ``grad_rows`` as there, if the
-    caller has them; the module docstring).  ``sorted=True`` promises
+    caller has them; the module docstring).  The other sums add every
+    row, so the rows outside a caller's [indptr[0], indptr[-1]) must be
+    zeros (masked padding).  ``sorted=True`` promises
     sorted ids, as in JAX: on the card, above ONEHOT_SEGMENTS_MAX
     segments, ids that are not sorted give wrong sums (``CHECK_SORTED``
     catches them)."""
@@ -106,15 +115,21 @@ def sorted_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     its backward gathers the gradient rows by ``grad_rows`` (default
     ``segment_grad_rows``, a caller may keep it with the batch).  On the
     CPU the plain version, ``index_add_`` over the same entries in the
-    same order."""
+    same order.
+
+    On the card each call also counts under the family ``segment_csr``,
+    by (variant, num_segments): ``batch`` where the caller passed the
+    CSR, ``ids`` where the call built it from the ids."""
     if CHECK_SORTED and not bool((segment_ids[1:] >= segment_ids[:-1]).all()):
         raise ValueError("sorted_segment_sum: the segment ids are not "
                          "sorted")
+    csr = "batch" if indptr is not None else "ids"
     if indptr is None:
         indptr = segment_indptr(segment_ids, num_segments)
     if not _on_card(data):
         return sorted_segment_sum_reference(data, segment_ids, num_segments,
                                             indptr)
+    count_launch("segment_csr", csr, num_segments)
     return _SortedSegmentSum.apply(data, segment_ids, indptr, num_segments,
                                    grad_rows)
 
@@ -213,20 +228,22 @@ def onehot_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
                  num_segments: int,
                  weights: Optional[torch.Tensor] = None,
-                 sorted: bool = True) -> torch.Tensor:
+                 sorted: bool = True,
+                 indptr: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean over segments; ``weights`` masks entries out of both the
-    numerator and the denominator."""
+    numerator and the denominator.  ``indptr`` as in ``segment_sum``:
+    only with ``weights`` that mask the entries past its end."""
     if weights is not None:
         w = weights.to(data.dtype)
         while w.dim() < data.dim():
             w = w[..., None]
         data = data * w
         counts = segment_sum(torch.broadcast_to(w, data.shape).contiguous(),
-                             segment_ids, num_segments, sorted)
+                             segment_ids, num_segments, sorted, indptr)
     else:
         counts = segment_sum(torch.ones_like(data), segment_ids,
-                             num_segments, sorted)
-    total = segment_sum(data, segment_ids, num_segments, sorted)
+                             num_segments, sorted, indptr)
+    total = segment_sum(data, segment_ids, num_segments, sorted, indptr)
     return total / torch.clamp(counts, min=1.0)
 
 
@@ -244,9 +261,11 @@ def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
 def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
                     num_segments: int,
                     mask: Optional[torch.Tensor] = None,
-                    sorted: bool = True) -> torch.Tensor:
+                    sorted: bool = True,
+                    indptr: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Numerically stable softmax within segments; ``mask`` excludes
-    padded entries."""
+    padded entries.  ``indptr`` (the denominator's sum) as in
+    ``segment_sum``: a CSR that ends before the masked entries."""
     if mask is not None:
         logits = torch.where(mask, logits, -torch.inf)
     seg_max = segment_max(logits.detach(), segment_ids, num_segments)
@@ -254,7 +273,7 @@ def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
     ex = torch.exp(logits - seg_max[segment_ids.long()])
     if mask is not None:
         ex = torch.where(mask, ex, 0.0)
-    denom = segment_sum(ex, segment_ids, num_segments, sorted)
+    denom = segment_sum(ex, segment_ids, num_segments, sorted, indptr)
     return ex / torch.clamp(denom[segment_ids.long()], min=1e-16)
 
 

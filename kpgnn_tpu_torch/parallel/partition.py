@@ -198,7 +198,8 @@ def partition_batch(batch: GraphBatch, n_shards: int, rank: int,
           if getattr(batch, f) is not None}
     if node_level and batch.y is not None:
         kw["y"] = batch.y[rows]
-    return batch.replace(adj=adj, **kw)
+    # the whole batch's graph CSR indexes rows this shard does not hold
+    return batch.replace(adj=adj, graph_indptr=None, **kw)
 
 
 def partition_loader(loader, n_shards: int, rank: int, group=None,

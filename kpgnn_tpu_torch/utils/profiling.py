@@ -34,8 +34,11 @@ reads.
 (family, variant, shape): the family is the wrapper that launched it
 (``gather_segment_sum``, ``sorted_segment_sum``, ``bilstm``), the
 variant its ``variant_name`` and the shape the row width D, or (T, H)
-for the BiLSTM.  ``launch_counts`` reads one family;
-``reset_launch_counts`` zeroes every family.
+for the BiLSTM.  One family counts no kernel of its own: ``segment_csr``
+counts each sorted sum on the card by the CSR it read, ``batch`` (the
+caller's, carried by the batch) or ``ids`` (built from the ids on the
+device), with the number of segments as its shape.  ``launch_counts``
+reads one family; ``reset_launch_counts`` zeroes every family.
 """
 from __future__ import annotations
 

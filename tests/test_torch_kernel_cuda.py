@@ -18,6 +18,12 @@ rules out a narrower accumulator.  A second run must repeat the kernel's
 outputs bit for bit, and each run launches the expected variants once
 forward and once backward.
 
+The last case is QM9 scoring's batch (2,048 QM9-shaped molecules on the
+kernel plan, g_pad 2,049, n_pad 65,536): its graph-level sums (the
+attention pooling's two and the seven virtual-node poolings of a
+forward) are sorted sums, and on the batch's CSR, which ends at the real
+nodes, they and the predictions equal those on the ids' CSR bit for bit.
+
 A CUDA kernel has no CPU form, so every case needs a card and skips
 without one.  On the card, without the JAX package's conftest:
 
@@ -172,3 +178,70 @@ def test_kernel_matches_plain_version(case, form, dtype, dev):
         assert bool((got["dtk"][0] == 0).all()), f"{case} d tablek row 0"
     else:
         assert got["dtk"] is None
+
+
+QM9_SCORING = "qm9_kpginplus_k8l8h128"
+
+
+def graph_sums_both_ways(dev, monkeypatch, n_molecules):
+    """QM9 scoring's forward on ``n_molecules`` QM9-shaped molecules from
+    the benchmark's generator, collated on the kernel plan as the loader
+    pads them, with its graph-level sums recorded: ((predictions, sums,
+    segment_csr counts) on the batch's CSR, the same without it)."""
+    import json
+    import os
+
+    from benchmark import molecules
+    from benchmark.drive import khop_config, program_model
+    from kpgnn_tpu_torch.models import backbones, heads
+    from kpgnn_tpu_torch.nn.inits import init_parameters
+    from kpgnn_tpu_torch.ops import segment
+    from kpgnn_tpu_torch.prep.runner import preprocess_graphs
+    from kpgnn_tpu_torch.train.loader import GraphLoader
+    from kpgnn_tpu_torch.utils.profiling import reset_launch_counts
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "configs",
+                           QM9_SCORING + ".json")) as f:
+        m = json.load(f)["model"]
+    graphs = preprocess_graphs(
+        molecules.generate("qm9", n_molecules, 20261), khop_config(m))
+    b = next(iter(GraphLoader(graphs, n_molecules, mode="pallas",
+                              v1=m["num_hop1_edge"] + 2,
+                              vk=m["max_pe_num"] + 2))).to(dev)
+    model = init_parameters(program_model(m, "cpu"), 7).to(dev).eval()
+    sums = []
+
+    def recording(fn):
+        def call(data, ids, n, *a, **kw):
+            out = fn(data, ids, n, *a, **kw)
+            if n == b.g_pad:
+                sums.append(out)
+            return out
+        return call
+    for mod in (segment, heads, backbones):
+        monkeypatch.setattr(mod, "segment_sum", recording(mod.segment_sum))
+
+    def forward(batch):
+        sums.clear()
+        reset_launch_counts()
+        with torch.no_grad():
+            pred = model(batch)
+        counts = {v: n for (v, shape), n in launch_counts(
+            "segment_csr", by_shape=True).items() if shape == b.g_pad}
+        return pred, list(sums), counts
+    return b, forward(b), forward(b.replace(graph_indptr=None))
+
+
+def test_graph_sums_on_the_batch_csr_repeat_the_ids_csr(dev, monkeypatch):
+    b, (pred, sums, counts), (pred_ids, sums_ids, counts_ids) = \
+        graph_sums_both_ways(dev, monkeypatch, 2048)
+    assert b.g_pad == 2049 and b.n_pad == 65536
+    tot_n = int(b.graph_indptr[-1])
+    assert int(b.graph_indptr[-2]) == tot_n == int(b.node_mask.sum())
+    assert counts == {"batch": 9} and counts_ids == {"ids": 9}
+    assert len(sums) == len(sums_ids) == 9
+    for i, (s, t) in enumerate(zip(sums, sums_ids)):
+        assert torch.equal(s, t), f"graph-level sum {i}"
+    assert bool(torch.isfinite(pred).all())
+    assert torch.equal(pred, pred_ids)
